@@ -5,36 +5,51 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. env:     torch / CUDA / nvcc versions and the card's name and power limit;
-2. build:   compiles the hand-written kernels from the checkout's sources
-            (``nvcc``, into ``build/torch_kernels/``), timed;
+2. build:   compiles both hand-written kernel libraries from the checkout's
+            sources (one ``nvcc`` each, started together, into
+            ``build/torch_kernels/``), timed;
 3. kernel:  ``expansion_accept`` (CUDA) against its plain PyTorch version on
             the card at the shapes of the main path, (S, N) = (42, 468),
             (129, 54), (387, 6): equal accept masks, cut energies, the
             guard, median milliseconds of both;
-4. small:   a small V3 solve on the card against the same solve on the CPU
-            (plain versions), at windR 6 and 20: energies within the
-            trajectory tolerance;
-5. slice:   ``LocalExpansionSolver(device="cuda")`` on the 1436 x 992 x 145
+4. unary_kernel: ``sample_windows`` (CUDA) against its plain version on the
+            windows of the 1436 x 992 x 145 problem, (F, N) = (62, 468),
+            (149, 54), (407, 6), raw and guided-filtered (r 10): max abs
+            error on supported positions, median milliseconds of both;
+5. small:   a small V3 solve on the card against the same solve on the CPU
+            (plain versions), at windR 6 and 20, on the "auto" and the
+            "dma" unary routes: energies within the trajectory tolerance;
+6. slice:   ``LocalExpansionSolver(device="cuda")`` on the 1436 x 992 x 145
             synthetic problem, 3 layers, 1 greedy + 1 graph-cut sweep, then
             the full 2 + 5 schedule: seconds per sweep and per layer,
             energies, bad rates against the planted truth, and the kernel
             launch counts of each run;
-6. profile: one greedy and one graph-cut sweep of the slice under
-            torch.profiler: wall and device-busy seconds and the idle share
-            of each window, the largest device ops, the kernel's seconds per
-            move-window size (CUDA events), and peak device memory.
+7. cli:     the port's command line, ``-mode MiddV3 -unaryBackend dma
+            -device cuda``, on the same problem written out as a MiddV3
+            directory (PNGs, calib.txt, im0.acrt, disp0GT.pfm) under
+            ``build/``: time.txt, the log's energies and bad rates, seconds
+            per sweep, both kernels' launch counts, the disparity's shape;
+8. profile: the init + one greedy sweep on each unary route, unprofiled
+            in turns (3 each) and under torch.profiler, and one graph-cut
+            sweep under torch.profiler: wall seconds, and for the profiled
+            windows device-busy seconds, the idle share and the largest
+            device ops, the expansion kernel's seconds per move-window size
+            (CUDA events), and peak device memory.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
-without a CUDA device.
+without a CUDA device. ``python3 chip_smoke.py PHASE ...`` runs only the
+named phases (after env and build) and prints no result line.
 """
 from __future__ import annotations
 
 import json
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,6 +61,12 @@ SHAPES = ((42, 468, 16), (129, 54, 16), (387, 6, 64))  # (S, N, sweeps)
 ROUNDS = 16
 RTOL, ATOL = 1e-5, 1e-4
 SMALL_WINDR = (6, 20)
+#: sample_windows against its plain version, by filter radius: raw costs
+#: (the same float32 operations) and guided-filtered costs on supported
+#: positions (float64 box sums in another order; the filter's inverse
+#: covariance amplifies their last-bit differences).
+UNARY_ATOL = {0: 1e-6, 10: 2e-4}
+CLI_DIR = pathlib.Path(__file__).resolve().parent / "build" / "smoke_cli"
 
 
 def emit(obj) -> None:
@@ -60,8 +81,8 @@ def smi_line() -> str:
 
 
 def phase_env(torch):
-    from localexpstereo_tpu_torch.ops import mincut_cuda
-    nvcc = subprocess.run([mincut_cuda._nvcc(), "--version"],
+    from localexpstereo_tpu_torch.ops import cuda_build
+    nvcc = subprocess.run([cuda_build.nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     emit({"phase": "env", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -71,10 +92,14 @@ def phase_env(torch):
 
 
 def phase_build():
-    from localexpstereo_tpu_torch.ops import mincut_cuda
-    path, seconds, compiled = mincut_cuda.build(verbose=True)
-    emit({"phase": "build", "library": str(path.name), "seconds": seconds,
-          "compiled": compiled})
+    from localexpstereo_tpu_torch.ops import cuda_build, mincut_cuda, unary_cuda
+    t0 = time.perf_counter()
+    built = cuda_build.build([mincut_cuda.LIBRARY, unary_cuda.LIBRARY],
+                             verbose=True)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {name: {"file": path.name, "ready_s": s,
+                               "compiled": compiled}
+                        for name, (path, s, compiled) in built.items()}})
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -156,7 +181,8 @@ class Recorder:
         self.rows.append((index, total, time.perf_counter()))
 
 
-def make_solver(scale: float, device: str, sizes=None, windr: int = 20):
+def make_solver(scale: float, device: str, sizes=None, windr: int = 20,
+                route: str = "auto"):
     from localexpstereo_tpu_torch.config import PARAMS_GF
     from localexpstereo_tpu_torch.models import engine
     from localexpstereo_tpu_torch.utils import synthetic
@@ -164,7 +190,8 @@ def make_solver(scale: float, device: str, sizes=None, windr: int = 20):
     params = PARAMS_GF.replace(windR=windr, lambda_=0.5, th_col=0.5)
     solver = engine.LocalExpansionSolver(img, img, params,
                                          max_disp=float(nd - 1), vol0=vol,
-                                         vol1=vol, seed=0, device=device)
+                                         vol1=vol, seed=0, device=device,
+                                         unary_backend=route)
     # The reference's layer sizing (main.cpp:395-397), taken as it is.
     sizes = sizes or [int(w * f) for f in (0.01, 0.03, 0.09)]
     for i, sz in enumerate(sizes):
@@ -183,27 +210,101 @@ def bad_rates(solver, truth):
 
 def phase_small(torch):
     """The same small problem solved on the card and on the CPU, at a
-    narrow filter window and at the main path's."""
-    for windr in SMALL_WINDR:
-        out = {}
-        for device in ("cuda", "cpu"):
-            solver, truth, sizes = make_solver(0.06, device, sizes=[4, 8, 16],
-                                               windr=windr)
-            rec = Recorder(torch)
-            solver.set_evaluator(rec)
-            solver.run(iterations=2, pm_iterations=1)
-            out[device] = ([e for _, e, _ in rec.rows],
-                           bad_rates(solver, truth))
-        (e_gpu, b_gpu), (e_cpu, b_cpu) = out["cuda"], out["cpu"]
-        ok = all(abs(a - b) <= 0.002 * abs(b) + 1e-3
-                 for a, b in zip(e_gpu, e_cpu))
-        ok &= abs(b_gpu[1] - b_cpu[1]) <= 0.5
-        emit({"phase": "small", "windR": windr, "layers": sizes,
-              "energies_cuda": e_gpu, "energies_cpu": e_cpu,
-              "bad_cuda": b_gpu, "bad_cpu": b_cpu, "agree": ok})
-        if not ok:
-            raise AssertionError(f"CUDA and CPU solves disagree at windR "
-                                 f"{windr}")
+    narrow filter window and at the main path's, on both unary routes."""
+    from localexpstereo_tpu_torch.ops import unary_cuda
+    for route in ("auto", "dma"):
+        for windr in SMALL_WINDR:
+            out = {}
+            for device in ("cuda", "cpu"):
+                solver, truth, sizes = make_solver(
+                    0.06, device, sizes=[4, 8, 16], windr=windr, route=route)
+                rec = Recorder(torch)
+                solver.set_evaluator(rec)
+                unary_cuda.sample_windows.launches = 0
+                solver.run(iterations=2, pm_iterations=1)
+                out[device] = ([e for _, e, _ in rec.rows],
+                               bad_rates(solver, truth),
+                               unary_cuda.sample_windows.launches)
+            (e_gpu, b_gpu, n_gpu), (e_cpu, b_cpu, _) = out["cuda"], out["cpu"]
+            ok = all(abs(a - b) <= 0.002 * abs(b) + 1e-3
+                     for a, b in zip(e_gpu, e_cpu))
+            ok &= abs(b_gpu[1] - b_cpu[1]) <= 0.5
+            ok &= (n_gpu > 0) == (route == "dma")
+            emit({"phase": "small", "route": route, "windR": windr,
+                  "layers": sizes, "energies_cuda": e_gpu,
+                  "energies_cpu": e_cpu, "bad_cuda": b_gpu, "bad_cpu": b_cpu,
+                  "sample_windows_launches_cuda": n_gpu, "agree": ok})
+            if not ok:
+                raise AssertionError(f"CUDA and CPU solves disagree at windR "
+                                     f"{windr} on the {route} route")
+
+
+def unary_problem(torch, solver, truth, layer, rng):
+    """Window origins of color (0, 0) of ``layer`` and one proposal per
+    region near the planted truth at the region's centre."""
+    cfg = solver.cfg
+    s, r = layer.unit_size, cfg.params.guided_radius
+    ox, oy, _ = layer.color_regions(0, 0)
+    cx = np.clip(ox + s // 2, 0, cfg.width - 1)
+    cy = np.clip(oy + s // 2, 0, cfg.height - 1)
+    n = len(ox)
+    a = rng.uniform(-0.02, 0.02, n)
+    b = rng.uniform(-0.02, 0.02, n)
+    c = truth[cy, cx] + rng.uniform(-0.5, 0.5, n) - a * cx - b * cy
+    props = np.stack([a, b, c, np.zeros(n)], -1).astype(np.float32)
+
+    def dev(x):
+        return torch.as_tensor(x, device="cuda")
+    return (dev(props), dev((ox - s - r).astype(np.int64)),
+            dev((oy - s - r).astype(np.int64)), 3 * s + 2 * r)
+
+
+def phase_unary_kernel(torch):
+    """sample_windows against its plain version on the main path's windows
+    (uint8 volume, r 10) of every layer, raw and guided-filtered."""
+    from localexpstereo_tpu_torch.ops import boxfilter, unary_cuda
+    solver, truth, sizes = make_solver(1.0, "cuda")
+    solver.finalize()
+    data, cfg = solver.data, solver.cfg
+    r = cfg.params.guided_radius
+    rng = np.random.default_rng(0)
+    rows = []
+    for layer in solver.layers:
+        props, fox, foy, f = unary_problem(torch, solver, truth, layer, rng)
+        n = props.shape[0]
+        it = torch.arange(f, device="cuda")
+        ys = foy[:, None, None] + it[None, :, None]
+        xs = fox[:, None, None] + it[None, None, :]
+        inside = ((xs >= 0) & (xs < cfg.width) & (ys >= 0)
+                  & (ys < cfg.height)).float()
+        for r_gf in (0, r):
+            support = boxfilter.boxsum2d(inside, r_gf) > 0.5
+            args = (data.vol[0], cfg.vol_pad, props, fox, foy, f,
+                    cfg.height, cfg.width)
+            kw = dict(min_disp=cfg.min_disp, th_col=cfg.params.th_col,
+                      scale=cfg.vol_scale, zero=cfg.vol_zero,
+                      stats=(data.guide[0], data.gf_mean[0], data.gf_inv[0]),
+                      pad=cfg.pad, r_gf=r_gf)
+            got = unary_cuda.sample_windows(*args, **kw)
+            want = unary_cuda.sample_windows_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().masked_fill(~support, 0).max())
+            ok = bool(torch.isfinite(got.masked_fill(~support, 0)).all()
+                      and err <= UNARY_ATOL[r_gf])
+            row = {"F": f, "N": n, "r_gf": r_gf, "max_abs_err": err,
+                   "atol": UNARY_ATOL[r_gf], "ok": ok,
+                   "ms": time_ms(torch, lambda: unary_cuda.sample_windows(
+                       *args, **kw), 5),
+                   "plain_ms": time_ms(
+                       torch, lambda: unary_cuda.sample_windows_reference(
+                           *args, **kw), 3)}
+            emit({"phase": "unary_kernel", **row})
+            if not ok:
+                raise AssertionError(f"sample_windows disagrees: {row}")
+            rows.append(row)
+    del solver, data
+    torch.cuda.empty_cache()
+    return rows
 
 
 def timed_layers(torch, engine, layer_times):
@@ -295,7 +396,9 @@ def profiled(torch, fn):
     """Runs ``fn`` under torch.profiler. Returns the synchronized wall
     seconds, the device's busy seconds (the sum of the durations of its
     kernels and copies; one stream, so they do not overlap), the idle share
-    of that one window, the number of device ops and the largest ones."""
+    of that one window, the number of device ops and the largest ones, and
+    the host's seconds inside torch ops (self time, summed; the rest of
+    the wall time is Python outside them) with the largest ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -314,20 +417,48 @@ def profiled(torch, fn):
     busy = sum(t for t, _, _ in dev)
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "device_ops": sum(c for _, c, _ in dev),
-            "top": [[k[:80], t, c] for t, c, k in dev[:8]]}
+            "top": [[k[:80], t, c] for t, c, k in dev[:8]],
+            "host_op_s": sum(e.self_cpu_time_total for e in host) / 1e6,
+            "host_top": [[e.key[:60], e.self_cpu_time_total / 1e6, e.count]
+                         for e in host[:8]]}
+
+
+def greedy_walls(torch, solvers, order):
+    """Unprofiled wall seconds (synchronized) of the init + one greedy
+    sweep, per unary route, the routes taken in ``order``."""
+    walls = {route: [] for route in solvers}
+    for route in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solvers[route].run(iterations=0, pm_iterations=1)
+        torch.cuda.synchronize()
+        walls[route].append(time.perf_counter() - t0)
+    return walls
 
 
 def phase_profile(torch):
-    """One greedy sweep and then one graph-cut sweep of the slice (the
-    1 + 1 run's trajectory, in a warm process), each under torch.profiler,
-    the graph-cut kernel timed per call with CUDA events."""
+    """The init + one greedy sweep of the slice on each unary route,
+    unprofiled in turns (auto, dma, dma, auto, auto, dma) and then under
+    torch.profiler; then one graph-cut sweep on the "auto" route (the 1 + 1
+    run's trajectory, in a warm process) under torch.profiler, the
+    graph-cut kernel timed per call with CUDA events."""
     from localexpstereo_tpu_torch.models import engine
     from localexpstereo_tpu_torch.ops import mincut_cuda, rng
-    solver, _, sizes = make_solver(1.0, "cuda")
-    solver.finalize()
+    solvers = {}
+    for route in ("auto", "dma"):
+        solvers[route], _, sizes = make_solver(1.0, "cuda", route=route)
+        solvers[route].finalize()
+    walls = greedy_walls(torch, solvers,
+                         ("auto", "dma", "dma", "auto", "auto", "dma"))
+    greedy_dma = profiled(torch, lambda: solvers["dma"].run(
+        iterations=0, pm_iterations=1))
+    solver = solvers.pop("auto")
+    del solvers
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     greedy = profiled(torch, lambda: solver.run(iterations=0,
                                                 pm_iterations=1))
@@ -341,32 +472,135 @@ def phase_profile(torch):
         engine.mincut_cuda = mincut_cuda
     gc["kernel_by_shape"] = timed.by_shape()
     gc["kernel_s"] = sum(r["kernel_s"] for r in gc["kernel_by_shape"])
-    emit({"phase": "profile", "layers": sizes, "greedy": greedy, "gc": gc,
+    emit({"phase": "profile", "layers": sizes, "greedy_wall_s": walls,
+          "greedy_dma": greedy_dma, "greedy": greedy, "gc": gc,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
 
-def main() -> int:
+def write_midv3_scene(target: pathlib.Path):
+    """The 1436 x 992 x 145 synthetic problem as a MiddV3 directory:
+    im0/im1.png (the image as uint8), calib.txt, im0.acrt, disp0GT.pfm."""
+    from localexpstereo_tpu_torch.utils import acrt, pfm, png, synthetic
+    img, vol, h, w, nd, truth = synthetic.build_problem(1.0)
+    target.mkdir(parents=True)
+    for name in ("im0.png", "im1.png"):
+        png.write(str(target / name), img.astype(np.uint8))
+    (target / "calib.txt").write_text(
+        f"cam0=[1000 0 {w / 2}; 0 1000 {h / 2}; 0 0 1]\n"
+        f"cam1=[1000 0 {w / 2}; 0 1000 {h / 2}; 0 0 1]\n"
+        f"doffs=0\nbaseline=100\nwidth={w}\nheight={h}\nndisp={nd}\n")
+    acrt.write_acrt(str(target / "im0.acrt"), vol)
+    pfm.write_pfm(str(target / "disp0GT.pfm"), truth)
+    return h, w
+
+
+def read_log(path: pathlib.Path):
+    rows = path.read_text().strip().split("\n")
+    if rows[0].split("\t") != ["Time", "Eng", "Data", "Smooth", "all",
+                               "nonocc"]:
+        raise AssertionError(f"bad log header {rows[0]!r}")
+    return [[float(v) for v in row.split("\t")] for row in rows[1:]]
+
+
+def phase_cli(torch):
+    """The port's command line on the problem written as a MiddV3
+    directory, -unaryBackend dma on the card, the default 2 + 5 schedule."""
+    from localexpstereo_tpu_torch.cli import main as cli
+    from localexpstereo_tpu_torch.ops import mincut_cuda, unary_cuda
+    from localexpstereo_tpu_torch.utils import pfm
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        h, w = write_midv3_scene(CLI_DIR / "scene")
+        write_s = time.perf_counter() - t0
+        out = CLI_DIR / "out"
+        mincut_cuda.expansion_accept.launches = 0
+        unary_cuda.sample_windows.launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["-mode", "MiddV3", "-targetDir", str(CLI_DIR / "scene"),
+                       "-outputDir", str(out), "-unaryBackend", "dma",
+                       "-device", "cuda"])
+        wall_s = time.perf_counter() - t0
+        launches = {"expansion_accept": mincut_cuda.expansion_accept.launches,
+                    "sample_windows": unary_cuda.sample_windows.launches}
+        if rc != 0:
+            raise AssertionError(f"the CLI returned {rc}")
+        log = read_log(out / "debug" / "log_output.txt")
+        disp = pfm.read_pfm(str(out / "disp0.pfm"))
+        row = {"phase": "cli", "argv": "-mode MiddV3 -unaryBackend dma "
+                                       "-device cuda (2 + 5)",
+               "scene_write_s": write_s, "wall_s": wall_s,
+               "time_txt": float((out / "time.txt").read_text()),
+               "time": [r[0] for r in log],
+               "sweep_s": [b[0] - a[0] for a, b in zip(log, log[1:])],
+               "energies": [r[1] for r in log],
+               "bad_all": [r[4] for r in log],
+               "launches": launches, "disp_shape": list(disp.shape),
+               "disp_finite": bool(np.isfinite(disp).all())}
+        emit(row)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    energies = row["energies"]
+    if len(energies) != 1 + 2 + 5:
+        raise AssertionError(f"expected 8 log rows, got {len(energies)}")
+    if row["disp_shape"] != [h, w] or not row["disp_finite"]:
+        raise AssertionError(f"bad disparity map: {row['disp_shape']}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    gc = energies[2:]
+    if any(b > a for a, b in zip(gc, gc[1:])):
+        raise AssertionError(f"graph-cut energy rose: {energies}")
+    return row
+
+
+PHASES = ("kernel", "unary_kernel", "small", "slice", "cli", "profile")
+
+
+def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke needs one card",
               file=sys.stderr)
         return 2
+    only = set(argv)
+    if not only <= set(PHASES):
+        print(f"chip_smoke: phases are {PHASES}", file=sys.stderr)
+        return 2
     phase_env(torch)
     phase_build()
+    if only:
+        for name in PHASES:
+            if name == "slice" and name in only:
+                run_slice(torch, pm_iterations=1, iterations=1)
+            elif name in only:
+                globals()[f"phase_{name}"](torch)
+        return 0
     rows = phase_kernel(torch)
+    urows = phase_unary_kernel(torch)
     phase_small(torch)
     first = run_slice(torch, pm_iterations=1, iterations=1)
     run_slice(torch, pm_iterations=2, iterations=5)
+    cli_row = phase_cli(torch)
     phase_profile(torch)
-    # ms / plain_ms: one call at each of the three shapes, summed.
-    emit({"kernels": [{
-        "name": "expansion_accept", "route": "cuda",
-        "source": "localexpstereo_tpu_torch/csrc/expansion_accept.cu",
-        "replaces": "localexpstereo_tpu/ops/mincut_pallas.py:636",
-        "launches": first["expansion_accept_launches"],
-        "max_abs_err": max(r["max_abs_energy_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows)}]})
+    # ms / plain_ms: one call at each of the three shapes, summed (for
+    # sample_windows, the guided-filtered calls of the main path).
+    gf = [r for r in urows if r["r_gf"] > 0]
+    emit({"kernels": [
+        {"name": "expansion_accept", "route": "cuda",
+         "source": "localexpstereo_tpu_torch/csrc/expansion_accept.cu",
+         "replaces": "localexpstereo_tpu/ops/mincut_pallas.py:636",
+         "launches": cli_row["launches"]["expansion_accept"],
+         "launches_slice": first["expansion_accept_launches"],
+         "max_abs_err": max(r["max_abs_energy_err"] for r in rows),
+         "ms": sum(r["ms"] for r in rows),
+         "plain_ms": sum(r["plain_ms"] for r in rows)},
+        {"name": "sample_windows", "route": "cuda",
+         "source": "localexpstereo_tpu_torch/csrc/sample_windows.cu",
+         "replaces": "localexpstereo_tpu/ops/unary_pallas.py:256",
+         "launches": cli_row["launches"]["sample_windows"],
+         "max_abs_err": max(r["max_abs_err"] for r in urows),
+         "ms": sum(r["ms"] for r in gf),
+         "plain_ms": sum(r["plain_ms"] for r in gf)}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -375,4 +609,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,261 @@
+"""The port's command line (counterpart of
+``localexpstereo_tpu.cli.main``; reference ``main.cpp:425-480``).
+
+    python -m localexpstereo_tpu_torch.cli.main -mode MiddV3 \\
+        -targetDir DIR -outputDir OUT [-unaryBackend dma] [-device cpu]
+
+Flags are the JAX CLI's (``main.cpp:33-50`` plus its own), in both ``-name
+value`` and ``--name value`` form, with ``-device cuda|cpu`` in place of
+``-platform``. ``-unaryBackend auto|xla|blk`` all run the plain sampler
+(on the TPU they were layouts of one function); ``dma`` runs the fused
+sampling + guided-filter kernel (its plain version with ``-device cpu``).
+
+MiddV3 mode: images ``im0/im1.png``, ``calib.txt``, the cost volume
+``im0.acrt`` (``im1.acrt``, or the L->R recovery, for the right view),
+ground truth ``disp0GT.pfm``; layers {1%, 3%, 9%} of the width, error
+threshold 1.0 (x0.5 Q, x2 F) (``main.cpp:331-421``); init, ``-pmIterations``
+greedy sweeps and ``-iterations`` graph-cut sweeps of view 0.
+
+Outputs: ``disp0.pfm``, ``time.txt`` and ``debug/`` with the per-sweep
+images and ``log_output.txt``.
+
+Not taken yet, each refused with the ROADMAP item it waits for:
+``-mode MiddV2`` (A11), ``-doDual 1`` (A10), ``-fuseSeeds`` > 1 (A12),
+``-volume mccnn`` (A13), ``-volPrecision bfloat16``; ``-laneFriendly 1`` is
+TPU sizing and is never taken.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import List, Optional
+
+import torch
+
+from ..config import PARAMS_GF, Options
+from ..models.engine import (COARSE_PROPOSERS, LAYER0_PROPOSERS,
+                             LocalExpansionSolver)
+from ..models.evaluator import Evaluator
+from ..ops import plane as plane_ops
+from ..utils import acrt, datasets, pfm
+
+
+def normalize_argv(argv: Optional[List[str]]) -> List[str]:
+    """Accepts the reference's single-dash long flags by normalizing to --."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    norm = []
+    for a in argv:
+        if a.startswith("-") and not a.startswith("--") and len(a) > 2 \
+                and not a[1].isdigit():
+            norm.append("-" + a)
+        else:
+            norm.append(a)
+    return norm
+
+
+def _refuse_unported(ns) -> None:
+    """Raises for the settings the port does not take yet."""
+    refused = [
+        (ns.mode == "MiddV2", "-mode MiddV2 needs the V2 warp energy, "
+                              "not ported yet (ROADMAP A11)"),
+        (ns.doDual != 0, "-doDual needs the second view and the "
+                         "post-process, not ported yet (ROADMAP A10)"),
+        (ns.fuseSeeds > 1, "-fuseSeeds > 1 needs fusion moves, not ported "
+                           "yet (ROADMAP A12)"),
+        (ns.volume == "mccnn", "-volume mccnn needs the MC-CNN volume, not "
+                               "ported yet (ROADMAP A13)"),
+        (ns.volPrecision == "bfloat16", "-volPrecision bfloat16 is not "
+                                        "ported; use uint8 or float32"),
+        (ns.laneFriendly != 0, "-laneFriendly sizes layers for the TPU's "
+                               "VMEM tiles; the port takes the reference "
+                               "sizing only"),
+    ]
+    for hit, why in refused:
+        if hit:
+            raise NotImplementedError(why)
+
+
+def parse_args(argv: Optional[List[str]] = None) -> Options:
+    norm = normalize_argv(argv)
+
+    ap = argparse.ArgumentParser(
+        prog="localexpstereo_tpu_torch",
+        description="Local Expansion Stereo on PyTorch + CUDA")
+    ap.add_argument("--mode", default="", choices=["", "MiddV2", "MiddV3"])
+    ap.add_argument("--targetDir", default="")
+    ap.add_argument("--outputDir", default="")
+    ap.add_argument("--doDual", type=int, default=0)
+    ap.add_argument("--iterations", type=int, default=5)
+    ap.add_argument("--pmIterations", type=int, default=2)
+    ap.add_argument("--ndisp", type=int, default=0)
+    ap.add_argument("--smooth_weight", type=float, default=None)
+    ap.add_argument("--filterRadious", "--filterRadius", type=int,
+                    dest="filterRadious", default=20)
+    ap.add_argument("--mc_threshold", type=float, default=0.5)
+    ap.add_argument("--threadNum", type=int, default=-1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--volume", default="acrt", choices=["acrt", "mccnn"])
+    ap.add_argument("--volPrecision", default="uint8",
+                    choices=["uint8", "bfloat16", "float32"])
+    ap.add_argument("--unaryBackend", default="auto",
+                    choices=["auto", "xla", "blk", "dma"])
+    ap.add_argument("--warmup", type=int, default=1)
+    ap.add_argument("--fuseSeeds", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--show", type=int, default=0)
+    ap.add_argument("--laneFriendly", type=int, default=0)
+    ns = ap.parse_args(norm)
+    _refuse_unported(ns)
+
+    # -threadNum is accepted for parity with the JAX CLI and does nothing;
+    # -doDual 0, -fuseSeeds 0|1 and -volume acrt are the only values taken.
+    return Options(
+        mode=ns.mode, output_dir=ns.outputDir, target_dir=ns.targetDir,
+        iterations=ns.iterations, pm_iterations=ns.pmIterations,
+        ndisp=ns.ndisp, smooth_weight=ns.smooth_weight,
+        mc_threshold=ns.mc_threshold, filter_radius=ns.filterRadious,
+        seed=ns.seed, warmup=ns.warmup, vol_precision=ns.volPrecision,
+        unary_backend="dma" if ns.unaryBackend == "dma" else "auto",
+        device=ns.device, show=bool(ns.show))
+
+
+def print_options(opt: Options):
+    print("----------- parameter settings -----------")
+    for name, val in [("mode", opt.mode), ("outputDir", opt.output_dir),
+                      ("targetDir", opt.target_dir),
+                      ("pmIterations", opt.pm_iterations),
+                      ("iterations", opt.iterations), ("ndisp", opt.ndisp),
+                      ("filterRadious", opt.filter_radius),
+                      ("smooth_weight", opt.resolve_smooth_weight()),
+                      ("mc_threshold", opt.mc_threshold),
+                      ("seed", opt.seed),
+                      ("unaryBackend", opt.unary_backend),
+                      ("device", opt.device)]:
+        print(f"{name:<15}: {val}")
+
+
+def _solver_params(opt: Options):
+    return PARAMS_GF.replace(windR=opt.filter_radius,
+                             lambda_=opt.resolve_smooth_weight(),
+                             th_col=opt.mc_threshold)
+
+
+def _make_solver(pair: datasets.StereoPair, opt: Options, layers, vols):
+    solver = LocalExpansionSolver(
+        pair.im0, pair.im1, _solver_params(opt), pair.max_disparity,
+        vol0=vols[0], vol1=vols[1], seed=opt.seed, device=opt.device,
+        unary_backend=opt.unary_backend, vol_dtype=opt.vol_precision)
+    solver.add_layer(layers[0], LAYER0_PROPOSERS)
+    for sz in layers[1:]:
+        solver.add_layer(sz, COARSE_PROPOSERS)
+    return solver
+
+
+def warm_up(solver: LocalExpansionSolver, opt: Options) -> None:
+    """The counterpart of the JAX solver's ``precompile``: a throwaway
+    solve of the same problem with at most one sweep of each kind, before
+    the evaluator is set. It builds the kernel libraries and pays the
+    device's first-use costs, so ``time.txt`` measures the solve alone."""
+    t0 = time.perf_counter()
+    solver.run(iterations=min(opt.iterations, 1),
+               pm_iterations=min(opt.pm_iterations, 1))
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize(solver.device)
+    print(f"warm-up solve in {time.perf_counter() - t0:.1f} s")
+
+
+def _run(solver: LocalExpansionSolver, pair, opt: Options,
+         error_thresh: float, gt_precision: float):
+    out_dir = opt.output_dir or "."
+    debug_dir = os.path.join(out_dir, "debug")
+    os.makedirs(debug_dir, exist_ok=True)
+
+    ev = Evaluator(pair.disp_gt, pair.nonocc,
+                   255.0 / max(pair.max_disparity, 1e-6),
+                   save_dir=debug_dir, show=opt.show)
+    ev.set_precision(gt_precision)
+    ev.set_error_threshold(error_thresh)
+    if opt.warmup:
+        warm_up(solver, opt)
+    solver.set_evaluator(ev)
+    try:
+        labeling = solver.run(opt.iterations,
+                              pm_iterations=opt.pm_iterations)
+        disp = plane_ops.disparity_map(labeling).cpu().numpy()
+        pfm.write_pfm(os.path.join(out_dir, "disp0.pfm"), disp)
+        with open(os.path.join(out_dir, "time.txt"), "w") as f:
+            f.write(f"{ev.get_current_time():f}\n")
+    finally:
+        ev.close()
+    return disp
+
+
+def load_v3_volumes(target_dir: str, pair: datasets.StereoPair):
+    """Left/right cost volumes of a V3 dataset from ``im0.acrt`` /
+    ``im1.acrt`` with the out-of-view fills; R recovered from L when absent
+    (``main.cpp:363-367``). The numpy codec of the JAX CLI's fallback."""
+    h, w = pair.im0.shape[:2]
+    p0 = os.path.join(target_dir, "im0.acrt")
+    p1 = os.path.join(target_dir, "im1.acrt")
+    vol_l = acrt.fill_out_of_view(acrt.read_acrt(p0, pair.ndisp, h, w), 0)
+    if os.path.exists(p1):
+        vol_r = acrt.read_acrt(p1, pair.ndisp, h, w)
+    else:
+        print("Cost volume file im1.acrt not found so recovered "
+              "from im0.acrt.")
+        vol_r = acrt.convert_volume_l2r(vol_l)
+    return vol_l, acrt.fill_out_of_view(vol_r, 1)
+
+
+def v3_error_threshold(target_dir: str) -> float:
+    """1.0, halved for quarter-size datasets, doubled for full-size
+    (``main.cpp:342-346``)."""
+    err = 1.0
+    if "trainingQ" in target_dir or "testQ" in target_dir:
+        err /= 2.0
+    elif "trainingF" in target_dir or "testF" in target_dir:
+        err *= 2.0
+    return err
+
+
+def v3_layers(w: int) -> List[int]:
+    """Reference heuristic {1%, 3%, 9%} of width (``main.cpp:395-397``)."""
+    return [max(1, int(w * 0.01)), max(1, int(w * 0.03)),
+            max(1, int(w * 0.09))]
+
+
+def run_midv3(opt: Options):
+    """The MiddV3 mode (``main.cpp:331-421``)."""
+    pair = datasets.load_data(opt.target_dir, opt.ndisp)
+    print(f"ndisp = {pair.ndisp}")
+    w = pair.im0.shape[1]
+    vol_l, vol_r = load_v3_volumes(opt.target_dir, pair)
+    solver = _make_solver(pair, opt, v3_layers(w), (vol_l, vol_r))
+    return _run(solver, pair, opt,
+                error_thresh=v3_error_threshold(opt.target_dir),
+                gt_precision=-1.0)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    opt = parse_args(argv)
+    print_options(opt)
+    if opt.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("-device cuda: no CUDA device is available "
+                           "(use -device cpu to run on the CPU)")
+    if opt.output_dir:
+        os.makedirs(opt.output_dir, exist_ok=True)
+    if opt.mode == "MiddV3":
+        print("Running by Middlebury V3 mode.")
+        run_midv3(opt)
+        return 0
+    print("Specify the following arguments:")
+    print("  -mode [MiddV3]")
+    print("  -targetDir [PATH_TO_IMAGE_DIR]")
+    print("  -outputDir [PATH_TO_OUTPUT_DIR]")
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

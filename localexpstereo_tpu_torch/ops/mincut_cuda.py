@@ -11,31 +11,18 @@ is the one routing point of the graph-cut sweep:
 - on a CPU tensor it runs :func:`expansion_accept_reference`, the same
   semantics in plain PyTorch.
 
-The build goes to ``build/torch_kernels/`` at the checkout root, keyed by a
-hash of the sources and flags, under a file lock. The library exposes a
-plain ``extern "C"`` launcher that is loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds).
+The library is built and loaded by :mod:`.cuda_build` (``nvcc`` into
+``build/torch_kernels/``, a plain ``extern "C"`` launcher loaded with
+``ctypes``).
 """
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import functools
-import hashlib
-import os
-import pathlib
-import subprocess
-import time
 
 import torch
 
-from . import mincut, pairwise
+from . import cuda_build, mincut, pairwise
 
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "expansion_accept.cu",)
-BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 #: float32 planes of the kernel's per-region workspace (see the .cu file).
 WORK_PLANES = 29
 
@@ -70,69 +57,21 @@ def expansion_accept_reference(halo, props, tox, toy, coeff8, ccost, pcost,
 
 # ------------------------------------------------------------- the kernel --
 
-def _source_key() -> str:
-    h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build(verbose: bool = False):
-    """Compiles the kernel library if it is not built yet for the current
-    sources. Returns (path, seconds spent compiling, whether it compiled)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"expansion_accept_{_source_key()}.so"
-    t0 = time.perf_counter()
-    compiled = False
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose
-                                           else []),
-                   "-o", str(tmp), *map(str, _SOURCES)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            if verbose:
-                print(res.stdout + res.stderr, flush=True)
-            os.replace(tmp, out)
-            compiled = True
-    return out, time.perf_counter() - t0, compiled
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
+def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.expansion_accept_launch
     fn.argtypes = ([ctypes.c_void_p] * 9
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib
+
+
+LIBRARY = cuda_build.Library("expansion_accept", ("expansion_accept.cu",),
+                             _declare)
 
 
 def _check(name, x, shape, device):
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(x.shape)}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, expected {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    cuda_build.check(name, x, device, (torch.float32,), shape)
 
 
 def expansion_accept(halo: torch.Tensor, props: torch.Tensor,
@@ -179,15 +118,13 @@ def expansion_accept(halo: torch.Tensor, props: torch.Tensor,
                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _library().expansion_accept_launch(
+        rc = cuda_build.load(LIBRARY).expansion_accept_launch(
             halo.data_ptr(), props.data_ptr(), tox.data_ptr(),
             toy.data_ptr(), coeff8.data_ptr(), ccost.data_ptr(),
             pcost.data_ptr(), accept.data_ptr(), work.data_ptr(), n, s,
             float(lam), float(tau), int(max_global_rounds),
             int(sweeps_per_round or 16), stream)
-    if rc != 0:
-        raise RuntimeError(f"expansion_accept kernel launch failed: "
-                           f"cudaError {rc}")
+    cuda_build.launch_error("expansion_accept", rc)
     expansion_accept.launches += 1
     return accept
 

@@ -48,6 +48,16 @@ def disparity_map(labeling: torch.Tensor, x0: int = 0,
     return disparity_at(labeling, xs, ys)
 
 
+def normal_map(labeling: torch.Tensor) -> torch.Tensor:
+    """Visualization map of plane normals (``StereoEnergy.h:274-289``):
+    channels ``(nz, (-b*nz+1)/2, (-a*nz+1)/2)``, the reference's BGR debug
+    output."""
+    a, b = labeling[..., 0], labeling[..., 1]
+    nz = torch.rsqrt(1.0 + a * a + b * b)
+    return torch.stack([nz, (-b * nz + 1.0) / 2.0, (-a * nz + 1.0) / 2.0],
+                       dim=-1)
+
+
 def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 

@@ -60,3 +60,37 @@ def fused_move_problem(rng: np.random.Generator, n: int, s: int,
     tox = rng.integers(-3, 10, n).astype(np.float32)
     toy = rng.integers(-3, 10, n).astype(np.float32)
     return [halo, props, tox, toy, coeff8, ccost, pcost], lam, tau
+
+
+def unary_window_problem(rng: np.random.Generator, n: int, f: int, d: int,
+                         h: int, w: int, pad: int, dtype: str = "float32"):
+    """Random inputs of one call of the fused unary sampler
+    (``ops/unary_cuda.sample_windows``) over ``n`` windows of ``f`` x ``f``
+    pixels of an ``h`` x ``w`` image with ``d`` disparities (the recipe of
+    the JAX package's tests of its fused kernel). Arrays are padded by
+    ``pad`` on every side: the volume [d, h+2pad, w+2pad], uint8-quantized
+    over [0, 2 th_col] or float32, and well-conditioned guide statistics
+    (guide [.., 3], mean [.., 3], inverse covariance [.., 6]), zero outside
+    the image. Proposal 0 leaves the disparity range and proposal 1 is not
+    finite. Returns (vol, props [n, 4], fox [n], foy [n] int32 window
+    origins, (guide, mean, inv), scale, th_col) as numpy arrays."""
+    volf = rng.random((d, h + 2 * pad, w + 2 * pad), np.float32)
+    if dtype == "uint8":
+        th_col = 0.5
+        scale = 2.0 * th_col / 255.0
+        vol = np.clip(np.rint(volf / scale), 0, 255).astype(np.uint8)
+    else:
+        th_col, scale, vol = 0.8, 1.0, volf
+    props = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                      rng.uniform(0, d - 1, n), np.zeros(n)],
+                     -1).astype(np.float32)
+    props[0, 2] = d + 5.0
+    props[1, 2] = np.inf
+    fox = rng.integers(-4, w - 2, n).astype(np.int32)
+    foy = rng.integers(-4, h - 2, n).astype(np.int32)
+    stats = rng.random((h, w, 12)).astype(np.float32)
+    stats[..., 6:] = stats[..., 6:] * 0.5 + 0.25
+    stats = np.pad(stats, ((pad, pad), (pad, pad), (0, 0)))
+    split = tuple(np.ascontiguousarray(stats[..., a:b])
+                  for a, b in ((0, 3), (3, 6), (6, 12)))
+    return vol, props, fox, foy, split, scale, th_col

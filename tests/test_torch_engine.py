@@ -8,6 +8,11 @@ layers, set on the JAX side, whose CPU defaults differ. On the CPU the JAX
 engine resolves to its XLA min-cut and "xla" sampler by itself. Each side
 is solved once per module; the port runs on the JAX side's EnergyData,
 carried across with energy_from_numpy.
+
+A second, smaller scene (32 x 64, 12 disparities, one layer, 1 greedy + 1
+graph-cut sweep) is solved on the "dma" unary route by both: the JAX
+solver through its fused Pallas sampler in interpret mode, the port
+through the fused kernel's plain version.
 """
 import dataclasses
 import os
@@ -33,13 +38,13 @@ LAYERS = [4, 8, 16]
 PM, GC = 1, 2
 
 
-def _scene():
+def _scene(h=H, w=W, nd=ND):
     r = np.random.default_rng(7)
-    im = (r.random((H, W, 3)) * 255).astype(np.uint8).astype(np.float32)
-    xs, ys = np.meshgrid(np.arange(W, dtype=np.float32),
-                         np.arange(H, dtype=np.float32))
-    truth = np.clip(0.04 * xs + 0.03 * ys + 3.0, 1, ND - 2)
-    d = np.arange(ND, dtype=np.float32)[:, None, None]
+    im = (r.random((h, w, 3)) * 255).astype(np.uint8).astype(np.float32)
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float32),
+                         np.arange(h, dtype=np.float32))
+    truth = np.clip(0.04 * xs + 0.03 * ys + 3.0, 1, nd - 2)
+    d = np.arange(nd, dtype=np.float32)[:, None, None]
     vol = np.minimum((d - truth[None]) ** 2 * 0.2, 1.0).astype(np.float32)
     vol += (r.random(vol.shape) * 0.02).astype(np.float32)
     return im, vol, truth
@@ -51,7 +56,7 @@ class _Recorder:
 
     def __init__(self, audit):
         self.audit = audit
-        self.energies, self.states = [], []
+        self.energies, self.smooth, self.states = [], [], []
 
     def start(self):
         pass
@@ -62,14 +67,16 @@ class _Recorder:
     def evaluate(self, solver, labeling_m, cost_m, mode, index):
         e = self.audit(solver.data, solver.cfg, labeling_m, cost_m, mode)
         self.energies.append(float(e[0]))
+        self.smooth.append(float(e[2]))
         self.states.append((np.array(labeling_m, copy=True),
                             np.array(cost_m, copy=True)))
 
 
-def _bad_rates(lab, truth):
-    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+def _bad_rates(lab, truth, nd=ND):
+    h, w = truth.shape
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
     disp = lab[..., 0] * xs + lab[..., 1] * ys + lab[..., 2]
-    err = np.abs(disp - truth)[8:-8, ND:-8]
+    err = np.abs(disp - truth)[8:-8, nd:-8]
     return float((err > 0.5).mean() * 100), float((err > 1.0).mean() * 100)
 
 
@@ -143,6 +150,71 @@ def test_gc_sweep_from_shared_state(solves):
     ts._sweep(state, 0, 0, True, key)
     e = float(teng.energy_audit(ts.data, ts.cfg, *state, 0)[0])
     assert _close(e, solves["jrec"].energies[PM + 1])
+
+
+DMA_H, DMA_W, DMA_ND, DMA_LAYER = 32, 64, 12, 8
+DMA_PROPOSERS = ("expansion", "ransac")
+
+
+@pytest.fixture(scope="module")
+def dma_solves():
+    """One layer, 1 greedy + 1 graph-cut sweep on the "dma" unary route:
+    the JAX solver runs its fused Pallas sampler in interpret mode (its
+    energy built with the DMA alignment padding and the statistics stack),
+    the port the kernel's plain version on that energy."""
+    from localexpstereo_tpu.models import energy as jenergy
+    im, vol, truth = _scene(DMA_H, DMA_W, DMA_ND)
+    params = dict(lambda_=0.5, th_col=0.5, windR=6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jenergy, "DMA_INTERPRET", True)
+        js = jeng.LocalExpansionSolver(im, im, J_PARAMS.replace(**params),
+                                       max_disp=float(DMA_ND - 1), vol0=vol,
+                                       vol1=vol, seed=0, unary_backend="dma")
+        js.add_layer(DMA_LAYER, DMA_PROPOSERS)
+        js.finalize()
+        assert js.data.gf_stack is not None
+        js.cfg = dataclasses.replace(js.cfg, gc_rounds=16, gc_sweeps=16)
+        jrec = _Recorder(jeng.energy_audit)
+        js.set_evaluator(jrec)
+        jlab, _ = js.run(iterations=1, view_modes=(0,), pm_iterations=1)
+
+    ts = teng.LocalExpansionSolver(im, im, T_PARAMS.replace(**params),
+                                   max_disp=float(DMA_ND - 1), vol0=vol,
+                                   vol1=vol, seed=0, unary_backend="dma")
+    ts.add_layer(DMA_LAYER, DMA_PROPOSERS)
+    ts.data, ts.cfg = tenergy.energy_from_numpy(js.data, js.cfg)
+    trec = _Recorder(teng.energy_audit)
+    ts.set_evaluator(trec)
+    tlab = ts.run(iterations=1, pm_iterations=1)
+    assert ts.cfg.unary_backend == "dma"
+    return dict(jrec=jrec, trec=trec, truth=truth, jlab=np.asarray(jlab),
+                tlab=tlab.numpy())
+
+
+def test_dma_solve_matches_jax(dma_solves):
+    je, te = dma_solves["jrec"].energies, dma_solves["trec"].energies
+    assert len(je) == len(te) == 3
+    for got, want in zip(te, je):
+        assert _close(got, want), (te, je)
+    assert te[2] <= te[1]
+    # The totals are dominated by COST_FOR_INVALID at the pixels no valid
+    # label has reached yet, so also hold the invalid counts equal and the
+    # rest of the energy (valid costs in float64, plus smoothness) to the
+    # trajectory tolerance.
+    parts = []
+    for rec in (dma_solves["jrec"], dma_solves["trec"]):
+        rows = []
+        for (_, cost_m), smooth in zip(rec.states, rec.smooth):
+            p = (cost_m.shape[0] - DMA_H) // 2
+            cost = cost_m[p:p + DMA_H, p:p + DMA_W].astype(np.float64)
+            valid = cost < 1e5
+            rows.append((int((~valid).sum()), cost[valid].sum() + smooth))
+        parts.append(rows)
+    for (jn, je_valid), (tn, te_valid) in zip(*parts):
+        assert tn == jn and _close(te_valid, je_valid), parts
+    jb = _bad_rates(dma_solves["jlab"], dma_solves["truth"], DMA_ND)
+    tb = _bad_rates(dma_solves["tlab"], dma_solves["truth"], DMA_ND)
+    assert abs(tb[0] - jb[0]) <= 0.5 and abs(tb[1] - jb[1]) <= 0.5, (tb, jb)
 
 
 def test_port_runs_without_jax(tmp_path):
