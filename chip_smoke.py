@@ -8,39 +8,52 @@ Run from the root of a checkout, with no arguments::
 Phases, each printing JSON lines:
 
 1. env:     torch / CUDA / nvcc versions and the card's name and power limit;
-2. build:   compiles both hand-written kernel libraries from the checkout's
-            sources (one ``nvcc`` each, started together, into
+2. build:   compiles the three hand-written kernel libraries from the
+            checkout's sources (one ``nvcc`` each, started together, into
             ``build/torch_kernels/``), timed;
 3. kernel:  ``expansion_accept`` (CUDA) against its plain PyTorch version on
             the card at the shapes of the main path, (S, N) = (42, 468),
             (129, 54), (387, 6): equal accept masks, cut energies, the
-            guard, median milliseconds of both;
-4. unary_kernel: ``sample_windows`` (CUDA) against its plain version on the
+            guard, median milliseconds of both, the card's bound;
+4. mincut_kernel: ``mincut_accept`` (CUDA; ``mincut_cuda.solve_graph``)
+            against its plain version on fusion graphs at the fusion path's
+            shapes, the same (S, N), 64 rounds of 16 sweeps: equal masks or
+            equal cut energies, the guard, median milliseconds, the bound;
+5. unary_kernel: ``sample_windows`` (CUDA) against its plain version on the
             windows of the 1436 x 992 x 145 problem, (F, N) = (62, 468),
             (149, 54), (407, 6), raw and guided-filtered (r 10): max abs
             error on supported positions, median milliseconds of both;
-5. small:   a small V3 solve on the card against the same solve on the CPU
-            (plain versions), at windR 6 and 20, on the "auto" and the
-            "dma" unary routes: energies within the trajectory tolerance;
-6. slice:   ``LocalExpansionSolver(device="cuda")`` on the 1436 x 992 x 145
+6. small:   a small V3 solve (1 greedy + 1 graph-cut sweep) on the card
+            against the same solve on the CPU (plain versions), at windR 6
+            and 20, on the "auto" and the "dma" unary routes, and once with
+            ``run(fuse_with=...)``: energies within the trajectory
+            tolerance;
+7. slice:   ``LocalExpansionSolver(device="cuda")`` on the 1436 x 992 x 145
             synthetic problem, 3 layers, 1 greedy + 1 graph-cut sweep, then
-            the full 2 + 5 schedule: seconds per sweep and per layer,
+            2 + 2 (the full 2 + 5 runs in cli and fuse): seconds per sweep
+            and per layer,
             energies, bad rates against the planted truth, and the kernel
             launch counts of each run;
-7. cli:     the port's command line, ``-mode MiddV3 -unaryBackend dma
+8. cli:     the port's command line, ``-mode MiddV3 -unaryBackend dma
             -device cuda``, on the same problem written out as a MiddV3
             directory (PNGs, calib.txt, im0.acrt, disp0GT.pfm) under
             ``build/``: time.txt, the log's energies and bad rates, seconds
             per sweep, both kernels' launch counts, the disparity's shape;
-8. profile: the init + one greedy sweep on each unary route, unprofiled
-            in turns (3 each) and under torch.profiler, and one graph-cut
+9. fuse:    the same command line with ``-fuseSeeds 2`` on the same
+            directory (written once for both): 9 log rows, the fused energy
+            against the last graph-cut one, all three kernels' launch
+            counts, time.txt, the auxiliary solve's, the warm-start unary's
+            and each layer's fusion seconds;
+10. profile: the init + one greedy sweep on each unary route, unprofiled
+            in turns (2 each) and under torch.profiler, and one graph-cut
             sweep under torch.profiler: wall seconds, and for the profiled
             windows device-busy seconds, the idle share and the largest
             device ops, the expansion kernel's seconds per move-window size
             (CUDA events), and peak device memory.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-line, and last ``{"ok": true, "device": {...}}``. Any failed check raises,
+Then a ``{"kernels": [...]}`` line (launches from the ``fuse`` run), the
+``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
+{...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
 without a CUDA device. ``python3 chip_smoke.py PHASE ...`` runs only the
 named phases (after env and build) and prints no result line.
@@ -60,6 +73,19 @@ import numpy as np
 SHAPES = ((42, 468, 16), (129, 54, 16), (387, 6, 64))  # (S, N, sweeps)
 ROUNDS = 16
 RTOL, ATOL = 1e-5, 1e-4
+#: The fusion move's solve: the JAX package's fusion_accept defaults.
+FUSION_ROUNDS, FUSION_SWEEPS = 64, 16
+#: H100 SXM peaks (NVIDIA's data sheet): device memory bytes/s, float32
+#: operations/s outside the tensor cores.
+HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+#: float32 operations per pixel, counted from the kernels' code: one BFS
+#: relaxation pass (8 residual tests, adds and mins), one push / apply /
+#: relabel sweep, the expansion kernel's tables, t-links, graph build and
+#: guard (once), and the unary kernel's 2-tap sample and guided filter
+#: (float64 box passes counted at the float32 rate, which keeps the bound a
+#: lower bound).
+OPS_BFS_PASS, OPS_SWEEP, OPS_EXPANSION_SETUP = 28, 80, 320
+OPS_SAMPLE, OPS_GUIDED = 15, 80
 SMALL_WINDR = (6, 20)
 #: sample_windows against its plain version, by filter radius: raw costs
 #: (the same float32 operations) and guided-filtered costs on supported
@@ -94,8 +120,8 @@ def phase_env(torch):
 def phase_build():
     from localexpstereo_tpu_torch.ops import cuda_build, mincut_cuda, unary_cuda
     t0 = time.perf_counter()
-    built = cuda_build.build([mincut_cuda.LIBRARY, unary_cuda.LIBRARY],
-                             verbose=True)
+    built = cuda_build.build([mincut_cuda.LIBRARY, mincut_cuda.MINCUT_LIBRARY,
+                              unary_cuda.LIBRARY], verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {name: {"file": path.name, "ready_s": s,
                                "compiled": compiled}
@@ -119,6 +145,32 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, nops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` and do ``nops`` float32 operations."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = nops / F32_OPS_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def solve_ops(stats, s: int) -> float:
+    """Operations of the push-relabel solves that the plain version ran on
+    these inputs, region by region (``mincut.solve_preflow``'s counts)."""
+    return float((stats["bfs_passes"] * OPS_BFS_PASS
+                  + stats["sweeps"] * OPS_SWEEP).sum()) * s * s
+
+
+def kernel_entry(rows):
+    """Sums of a kernel's per-shape rows for the ``kernels`` line; it is
+    bound by what bounds its largest share."""
+    top = max(rows, key=lambda r: r["bound_ms"])
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": top["bound_by"], "library_ms": None}
+
+
 def phase_kernel(torch):
     from localexpstereo_tpu_torch.ops import mincut, mincut_cuda
     from localexpstereo_tpu_torch.utils import synthetic
@@ -133,6 +185,12 @@ def phase_kernel(torch):
         want = mincut_cuda.expansion_accept_reference(*args, **kw)
         torch.cuda.synchronize()
         c00, c01, c10, t0, t1 = mincut_cuda.fused_terms(*args, lam, tau)
+        stats = {}
+        mincut.solve_preflow(*mincut.build_graph(t0, t1, c00, c01, c10),
+                             ROUNDS, sweeps, stats=stats)
+        nbytes = sum(a.numel() * a.element_size() for a in args) + n * s * s
+        bound_ms, bound_by = bound(
+            nbytes, solve_ops(stats, s) + OPS_EXPANSION_SETUP * n * s * s)
         e_got = mincut.move_energy_delta(got, t0, t1, c00, c01, c10)
         e_want = mincut.move_energy_delta(want, t0, t1, c00, c01, c10)
         err = (e_got - e_want).abs()
@@ -146,13 +204,66 @@ def phase_kernel(torch):
         row = {"S": s, "N": n, "rounds": ROUNDS, "sweeps": sweeps,
                "regions_equal": float((got == want).all(-1).all(-1)
                                       .float().mean()),
-               "max_abs_energy_err": float(err.max()),
+               "max_abs_err": float(err.max()),
                "rtol": RTOL, "atol": ATOL, "energy_ok": energy_ok, "guard_ok": guard_ok,
                "max_delta": float(e_got.max()),
-               "ms": ms, "plain_ms": plain_ms}
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes,
+               "plain_rounds": int(stats["rounds"].sum()),
+               "plain_bfs_passes": int(stats["bfs_passes"].sum()),
+               "plain_sweeps": int(stats["sweeps"].sum())}
         emit({"phase": "kernel", **row})
         if not (energy_ok and guard_ok):
             raise AssertionError(f"kernel disagrees at S={s}: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_mincut_kernel(torch):
+    """mincut_accept (solve_graph) against its plain version on fusion
+    graphs of two labelings near a planted plane, at the fusion path's
+    shapes."""
+    from localexpstereo_tpu_torch.ops import mincut, mincut_cuda
+    from localexpstereo_tpu_torch.utils import synthetic
+    rows = []
+    for s, n, _ in SHAPES:
+        arrays, lam, tau = synthetic.fusion_move_problem(
+            np.random.default_rng(s), n, s)
+        terms = mincut_cuda.fusion_terms(
+            *[torch.as_tensor(a, device="cuda") for a in arrays], lam, tau)
+        graph = [x.contiguous() for x in mincut.build_fusion_graph(*terms)]
+        kw = dict(max_global_rounds=FUSION_ROUNDS,
+                  sweeps_per_round=FUSION_SWEEPS)
+        got = mincut_cuda.solve_graph(*graph, **kw)
+        torch.cuda.synchronize()
+        stats = {}
+        want = mincut.solve_preflow(*graph, FUSION_ROUNDS, FUSION_SWEEPS,
+                                    stats=stats)
+        e_got = mincut.fusion_move_energy_delta(got, *terms)
+        e_want = mincut.fusion_move_energy_delta(want, *terms)
+        same = (got == want).all(-1).all(-1)
+        err = (e_got - e_want).abs()
+        ok = bool((same | (err == 0)).all())
+        nbytes = sum(x.numel() * x.element_size() for x in graph) + n * s * s
+        bound_ms, bound_by = bound(nbytes, solve_ops(stats, s))
+        row = {"S": s, "N": n, "rounds": FUSION_ROUNDS,
+               "sweeps": FUSION_SWEEPS,
+               "regions_equal": float(same.float().mean()),
+               "max_abs_err": float(err.max()), "ok": ok,
+               "accepted": float(got.float().mean()),
+               "guard_rejects": int((e_got > 0).sum()),
+               "guard_rejects_plain": int((e_want > 0).sum()),
+               "ms": time_ms(torch, lambda: mincut_cuda.solve_graph(
+                   *graph, **kw), 5),
+               "plain_ms": time_ms(torch, lambda: mincut.solve_preflow(
+                   *graph, FUSION_ROUNDS, FUSION_SWEEPS), 2),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               "plain_rounds": int(stats["rounds"].sum()),
+               "plain_bfs_passes": int(stats["bfs_passes"].sum()),
+               "plain_sweeps": int(stats["sweeps"].sum())}
+        emit({"phase": "mincut_kernel", **row})
+        if not ok or row["guard_rejects"] != row["guard_rejects_plain"]:
+            raise AssertionError(f"mincut_accept disagrees at S={s}: {row}")
         rows.append(row)
     return rows
 
@@ -182,7 +293,7 @@ class Recorder:
 
 
 def make_solver(scale: float, device: str, sizes=None, windr: int = 20,
-                route: str = "auto"):
+                route: str = "auto", seed: int = 0):
     from localexpstereo_tpu_torch.config import PARAMS_GF
     from localexpstereo_tpu_torch.models import engine
     from localexpstereo_tpu_torch.utils import synthetic
@@ -190,7 +301,7 @@ def make_solver(scale: float, device: str, sizes=None, windr: int = 20,
     params = PARAMS_GF.replace(windR=windr, lambda_=0.5, th_col=0.5)
     solver = engine.LocalExpansionSolver(img, img, params,
                                          max_disp=float(nd - 1), vol0=vol,
-                                         vol1=vol, seed=0, device=device,
+                                         vol1=vol, seed=seed, device=device,
                                          unary_backend=route)
     # The reference's layer sizing (main.cpp:395-397), taken as it is.
     sizes = sizes or [int(w * f) for f in (0.01, 0.03, 0.09)]
@@ -221,7 +332,7 @@ def phase_small(torch):
                 rec = Recorder(torch)
                 solver.set_evaluator(rec)
                 unary_cuda.sample_windows.launches = 0
-                solver.run(iterations=2, pm_iterations=1)
+                solver.run(iterations=1, pm_iterations=1)
                 out[device] = ([e for _, e, _ in rec.rows],
                                bad_rates(solver, truth),
                                unary_cuda.sample_windows.launches)
@@ -237,6 +348,36 @@ def phase_small(torch):
             if not ok:
                 raise AssertionError(f"CUDA and CPU solves disagree at windR "
                                      f"{windr} on the {route} route")
+    phase_small_fuse(torch)
+
+
+def phase_small_fuse(torch):
+    """The small solve with run(fuse_with=[the CPU solve of seed 1]) on
+    the card and on the CPU: energies within the trajectory tolerance, the
+    fused row no higher than the last graph-cut row, and the min-cut kernel
+    launched on the card."""
+    from localexpstereo_tpu_torch.ops import mincut_cuda
+    aux, _, _ = make_solver(0.06, "cpu", sizes=[4, 8, 16], seed=1)
+    ext = aux.run(iterations=1, pm_iterations=1).numpy()
+    out = {}
+    for device in ("cuda", "cpu"):
+        solver, truth, sizes = make_solver(0.06, device, sizes=[4, 8, 16])
+        rec = Recorder(torch)
+        solver.set_evaluator(rec)
+        mincut_cuda.solve_graph.launches = 0
+        solver.run(iterations=1, pm_iterations=1, fuse_with=[ext])
+        out[device] = ([e for _, e, _ in rec.rows], bad_rates(solver, truth),
+                       mincut_cuda.solve_graph.launches)
+    (e_gpu, b_gpu, n_gpu), (e_cpu, b_cpu, _) = out["cuda"], out["cpu"]
+    ok = len(e_gpu) == len(e_cpu) == 4 and all(
+        abs(a - b) <= 0.002 * abs(b) + 1e-3 for a, b in zip(e_gpu, e_cpu))
+    ok &= e_gpu[-1] <= e_gpu[-2] and n_gpu > 0
+    emit({"phase": "small", "route": "auto", "windR": 20, "fuse_with": 1,
+          "layers": sizes, "energies_cuda": e_gpu, "energies_cpu": e_cpu,
+          "bad_cuda": b_gpu, "bad_cpu": b_cpu,
+          "mincut_accept_launches_cuda": n_gpu, "agree": ok})
+    if not ok:
+        raise AssertionError("CUDA and CPU fused solves disagree")
 
 
 def unary_problem(torch, solver, truth, layer, rng):
@@ -291,8 +432,21 @@ def phase_unary_kernel(torch):
             err = float((got - want).abs().masked_fill(~support, 0).max())
             ok = bool(torch.isfinite(got.masked_fill(~support, 0)).all()
                       and err <= UNARY_ATOL[r_gf])
+            # Bytes: each window pixel's output and two volume taps, the
+            # windows' union of the statistics (12 float32 a pixel), the
+            # proposals and origins; operations: per window pixel.
+            span = [(nb - 1) * min(f, 4 * layer.unit_size) + f
+                    for nb in (layer.nbx, layer.nby)]
+            px = n * f * f
+            nbytes = (px * (4 + 2 * data.vol.element_size())
+                      + (span[0] * span[1] * 48 if r_gf else 0)
+                      + n * (16 + 2 * fox.element_size()))
+            bound_ms, bound_by = bound(
+                nbytes, px * (OPS_SAMPLE + (OPS_GUIDED if r_gf else 0)))
             row = {"F": f, "N": n, "r_gf": r_gf, "max_abs_err": err,
                    "atol": UNARY_ATOL[r_gf], "ok": ok,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes": nbytes,
                    "ms": time_ms(torch, lambda: unary_cuda.sample_windows(
                        *args, **kw), 5),
                    "plain_ms": time_ms(
@@ -442,7 +596,7 @@ def greedy_walls(torch, solvers, order):
 
 def phase_profile(torch):
     """The init + one greedy sweep of the slice on each unary route,
-    unprofiled in turns (auto, dma, dma, auto, auto, dma) and then under
+    unprofiled in turns (auto, dma, dma, auto) and then under
     torch.profiler; then one graph-cut sweep on the "auto" route (the 1 + 1
     run's trajectory, in a warm process) under torch.profiler, the
     graph-cut kernel timed per call with CUDA events."""
@@ -453,7 +607,7 @@ def phase_profile(torch):
         solvers[route], _, sizes = make_solver(1.0, "cuda", route=route)
         solvers[route].finalize()
     walls = greedy_walls(torch, solvers,
-                         ("auto", "dma", "dma", "auto", "auto", "dma"))
+                         ("auto", "dma", "dma", "auto"))
     greedy_dma = profiled(torch, lambda: solvers["dma"].run(
         iterations=0, pm_iterations=1))
     solver = solvers.pop("auto")
@@ -502,49 +656,73 @@ def read_log(path: pathlib.Path):
     return [[float(v) for v in row.split("\t")] for row in rows[1:]]
 
 
+def cli_scene():
+    """The MiddV3 directory of the cli and fuse phases, written at first
+    use (main removes it at the end). Returns (path, (h, w), seconds
+    spent writing it now)."""
+    from localexpstereo_tpu_torch.utils import pfm
+    scene = CLI_DIR / "scene"
+    t0 = time.perf_counter()
+    if not scene.exists():
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+        write_midv3_scene(scene)
+    h, w = pfm.read_pfm(str(scene / "disp0GT.pfm")).shape
+    return scene, (h, w), time.perf_counter() - t0
+
+
+def run_cli(argv, out):
+    """The port's command line on the shared scene; returns (wall seconds,
+    log rows, time.txt, disparity map)."""
+    from localexpstereo_tpu_torch.cli import main as cli
+    from localexpstereo_tpu_torch.utils import pfm
+    scene, _, _ = cli_scene()
+    t0 = time.perf_counter()
+    rc = cli.main(["-mode", "MiddV3", "-targetDir", str(scene),
+                   "-outputDir", str(out), *argv])
+    wall_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the CLI returned {rc}")
+    return (wall_s, read_log(out / "debug" / "log_output.txt"),
+            float((out / "time.txt").read_text()),
+            pfm.read_pfm(str(out / "disp0.pfm")))
+
+
+def kernel_launches():
+    from localexpstereo_tpu_torch.ops import mincut_cuda, unary_cuda
+    return {"expansion_accept": mincut_cuda.expansion_accept,
+            "mincut_accept": mincut_cuda.solve_graph,
+            "sample_windows": unary_cuda.sample_windows}
+
+
+def check_disparity(disp, shape):
+    if list(disp.shape) != list(shape) or not np.isfinite(disp).all():
+        raise AssertionError(f"bad disparity map: {disp.shape}")
+
+
 def phase_cli(torch):
     """The port's command line on the problem written as a MiddV3
     directory, -unaryBackend dma on the card, the default 2 + 5 schedule."""
-    from localexpstereo_tpu_torch.cli import main as cli
-    from localexpstereo_tpu_torch.ops import mincut_cuda, unary_cuda
-    from localexpstereo_tpu_torch.utils import pfm
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    try:
-        t0 = time.perf_counter()
-        h, w = write_midv3_scene(CLI_DIR / "scene")
-        write_s = time.perf_counter() - t0
-        out = CLI_DIR / "out"
-        mincut_cuda.expansion_accept.launches = 0
-        unary_cuda.sample_windows.launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main(["-mode", "MiddV3", "-targetDir", str(CLI_DIR / "scene"),
-                       "-outputDir", str(out), "-unaryBackend", "dma",
-                       "-device", "cuda"])
-        wall_s = time.perf_counter() - t0
-        launches = {"expansion_accept": mincut_cuda.expansion_accept.launches,
-                    "sample_windows": unary_cuda.sample_windows.launches}
-        if rc != 0:
-            raise AssertionError(f"the CLI returned {rc}")
-        log = read_log(out / "debug" / "log_output.txt")
-        disp = pfm.read_pfm(str(out / "disp0.pfm"))
-        row = {"phase": "cli", "argv": "-mode MiddV3 -unaryBackend dma "
-                                       "-device cuda (2 + 5)",
-               "scene_write_s": write_s, "wall_s": wall_s,
-               "time_txt": float((out / "time.txt").read_text()),
-               "time": [r[0] for r in log],
-               "sweep_s": [b[0] - a[0] for a, b in zip(log, log[1:])],
-               "energies": [r[1] for r in log],
-               "bad_all": [r[4] for r in log],
-               "launches": launches, "disp_shape": list(disp.shape),
-               "disp_finite": bool(np.isfinite(disp).all())}
-        emit(row)
-    finally:
-        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    _, shape, write_s = cli_scene()
+    fns = kernel_launches()
+    for fn in fns.values():
+        fn.launches = 0
+    wall_s, log, time_txt, disp = run_cli(
+        ["-unaryBackend", "dma", "-device", "cuda"], CLI_DIR / "out")
+    launches = {k: fns[k].launches
+                for k in ("expansion_accept", "sample_windows")}
+    row = {"phase": "cli", "argv": "-mode MiddV3 -unaryBackend dma "
+                                   "-device cuda (2 + 5)",
+           "scene_write_s": write_s, "wall_s": wall_s, "time_txt": time_txt,
+           "time": [r[0] for r in log],
+           "sweep_s": [b[0] - a[0] for a, b in zip(log, log[1:])],
+           "energies": [r[1] for r in log], "bad_all": [r[4] for r in log],
+           "launches": launches, "disp_shape": list(disp.shape),
+           "disp_finite": bool(np.isfinite(disp).all())}
+    emit(row)
     energies = row["energies"]
     if len(energies) != 1 + 2 + 5:
         raise AssertionError(f"expected 8 log rows, got {len(energies)}")
-    if row["disp_shape"] != [h, w] or not row["disp_finite"]:
-        raise AssertionError(f"bad disparity map: {row['disp_shape']}")
+    check_disparity(disp, shape)
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was never launched: {launches}")
     gc = energies[2:]
@@ -553,7 +731,107 @@ def phase_cli(torch):
     return row
 
 
-PHASES = ("kernel", "unary_kernel", "small", "slice", "cli", "profile")
+class FuseTimer:
+    """Times, synchronized, every ``LocalExpansionSolver.run`` (by seed and
+    whether it fuses), the warm-start unary inside ``run`` and every fusion
+    color step, by unit size and by whether it ran inside the fused run."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine = torch, engine
+        self.runs, self.warm_start, self.steps = [], [], []
+        self.fusing = False
+        self.saved = (engine.LocalExpansionSolver.run,
+                      engine.init_from_labeling, engine.fusion_color_step)
+
+    def timed(self, fn, record):
+        def wrapper(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            record(args, kwargs, time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def __enter__(self):
+        eng = self.engine
+        run, warm, step = self.saved
+
+        def fused_run(solver, *args, **kwargs):
+            self.fusing = bool(kwargs.get("fuse_with"))
+            try:
+                return self.timed(run, lambda a, kw, t: self.runs.append(
+                    (a[0].seed, self.fusing, t)))(solver, *args, **kwargs)
+            finally:
+                self.fusing = False
+
+        eng.LocalExpansionSolver.run = fused_run
+        eng.init_from_labeling = self.timed(
+            warm, lambda a, kw, t: self.warm_start.append(t))
+        eng.fusion_color_step = self.timed(
+            step, lambda a, kw, t: self.steps.append(
+                (kw["unit_size"], self.fusing, t)))
+        return self
+
+    def __exit__(self, *exc):
+        eng = self.engine
+        (eng.LocalExpansionSolver.run, eng.init_from_labeling,
+         eng.fusion_color_step) = self.saved
+
+    def fused_layers(self):
+        """[[unit size, color steps, seconds], ...] of the fused run."""
+        by = {}
+        for unit, fusing, t in self.steps:
+            if fusing:
+                n, total = by.get(unit, (0, 0.0))
+                by[unit] = (n + 1, total + t)
+        return [[u, n, t] for u, (n, t) in sorted(by.items(), reverse=True)]
+
+
+def phase_fuse(torch):
+    """The command line with -fuseSeeds 2 on the same directory: the
+    default 2 + 5 schedule of seed 1 (untimed), a throwaway fusion on the
+    warm-up state, then the timed 2 + 5 solve of seed 0 fused with seed 1's
+    labeling at every layer."""
+    from localexpstereo_tpu_torch.models import engine
+    _, shape, write_s = cli_scene()
+    fns = kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+    with FuseTimer(torch, engine) as timer:
+        wall_s, log, time_txt, disp = run_cli(
+            ["-unaryBackend", "dma", "-fuseSeeds", "2", "-device", "cuda"],
+            CLI_DIR / "fuse")
+    launches = {k: fn.launches for k, fn in fns.items()}
+    energies = [r[1] for r in log]
+    row = {"phase": "fuse", "argv": "-mode MiddV3 -unaryBackend dma "
+                                    "-fuseSeeds 2 -device cuda (2 + 5)",
+           "scene_write_s": write_s, "wall_s": wall_s, "time_txt": time_txt,
+           "time": [r[0] for r in log], "energies": energies,
+           "bad_all": [r[4] for r in log],
+           "runs_s": [[seed, fusing, t] for seed, fusing, t in timer.runs],
+           "aux_solve_s": [t for seed, fusing, t in timer.runs if seed == 1],
+           "warm_start_unary_s": timer.warm_start,
+           "fusion_layer_s": timer.fused_layers(),
+           "fusion_s": log[-1][0] - log[-2][0] if len(log) > 1 else None,
+           "launches": launches, "disp_shape": list(disp.shape),
+           "disp_finite": bool(np.isfinite(disp).all()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(row)
+    if len(energies) != 1 + 2 + 5 + 1:
+        raise AssertionError(f"expected 9 log rows, got {len(energies)}")
+    check_disparity(disp, shape)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    gc = energies[2:8]
+    if any(b > a for a, b in zip(gc, gc[1:])) or energies[8] > energies[7]:
+        raise AssertionError(f"graph-cut or fused energy rose: {energies}")
+    return row
+
+
+PHASES = ("kernel", "mincut_kernel", "unary_kernel", "small", "slice", "cli",
+          "fuse", "profile")
 
 
 def main(argv) -> int:
@@ -568,39 +846,57 @@ def main(argv) -> int:
         return 2
     phase_env(torch)
     phase_build()
-    if only:
-        for name in PHASES:
-            if name == "slice" and name in only:
-                run_slice(torch, pm_iterations=1, iterations=1)
-            elif name in only:
-                globals()[f"phase_{name}"](torch)
-        return 0
-    rows = phase_kernel(torch)
-    urows = phase_unary_kernel(torch)
-    phase_small(torch)
-    first = run_slice(torch, pm_iterations=1, iterations=1)
-    run_slice(torch, pm_iterations=2, iterations=5)
-    cli_row = phase_cli(torch)
-    phase_profile(torch)
-    # ms / plain_ms: one call at each of the three shapes, summed (for
-    # sample_windows, the guided-filtered calls of the main path).
+    try:
+        if only:
+            for name in PHASES:
+                if name == "slice" and name in only:
+                    run_slice(torch, pm_iterations=1, iterations=1)
+                elif name in only:
+                    globals()[f"phase_{name}"](torch)
+            return 0
+        seconds = {}
+
+        def timed(name, fn, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(torch, *args, **kwargs)
+            seconds[name] = time.perf_counter() - t0
+            return out
+        rows = timed("kernel", phase_kernel)
+        mrows = timed("mincut_kernel", phase_mincut_kernel)
+        urows = timed("unary_kernel", phase_unary_kernel)
+        timed("small", phase_small)
+        first = timed("slice_1_1", run_slice, pm_iterations=1, iterations=1)
+        timed("slice_2_2", run_slice, pm_iterations=2, iterations=2)
+        cli_row = timed("cli", phase_cli)
+        fuse_row = timed("fuse", phase_fuse)
+        timed("profile", phase_profile)
+        emit({"phase_seconds": seconds})
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # ms / plain_ms / bound_ms: one call at each of the three shapes, summed
+    # (for sample_windows, the guided-filtered calls of the main path).
+    # launches: the fuse run's.
     gf = [r for r in urows if r["r_gf"] > 0]
     emit({"kernels": [
         {"name": "expansion_accept", "route": "cuda",
          "source": "localexpstereo_tpu_torch/csrc/expansion_accept.cu",
          "replaces": "localexpstereo_tpu/ops/mincut_pallas.py:636",
-         "launches": cli_row["launches"]["expansion_accept"],
+         "launches": fuse_row["launches"]["expansion_accept"],
+         "launches_cli": cli_row["launches"]["expansion_accept"],
          "launches_slice": first["expansion_accept_launches"],
-         "max_abs_err": max(r["max_abs_energy_err"] for r in rows),
-         "ms": sum(r["ms"] for r in rows),
-         "plain_ms": sum(r["plain_ms"] for r in rows)},
+         **kernel_entry(rows)},
         {"name": "sample_windows", "route": "cuda",
          "source": "localexpstereo_tpu_torch/csrc/sample_windows.cu",
          "replaces": "localexpstereo_tpu/ops/unary_pallas.py:256",
-         "launches": cli_row["launches"]["sample_windows"],
-         "max_abs_err": max(r["max_abs_err"] for r in urows),
-         "ms": sum(r["ms"] for r in gf),
-         "plain_ms": sum(r["plain_ms"] for r in gf)}]})
+         "launches": fuse_row["launches"]["sample_windows"],
+         "launches_cli": cli_row["launches"]["sample_windows"],
+         **kernel_entry(gf),
+         "max_abs_err": max(r["max_abs_err"] for r in urows)},
+        {"name": "mincut_accept", "route": "cuda",
+         "source": "localexpstereo_tpu_torch/csrc/mincut_accept.cu",
+         "replaces": "localexpstereo_tpu/ops/mincut_pallas.py:589",
+         "launches": fuse_row["launches"]["mincut_accept"],
+         **kernel_entry(mrows)}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 ``localexpstereo_tpu.cli.main``; reference ``main.cpp:425-480``).
 
     python -m localexpstereo_tpu_torch.cli.main -mode MiddV3 \\
-        -targetDir DIR -outputDir OUT [-unaryBackend dma] [-device cpu]
+        -targetDir DIR -outputDir OUT [-unaryBackend dma] [-fuseSeeds N] \\
+        [-device cpu]
 
 Flags are the JAX CLI's (``main.cpp:33-50`` plus its own), in both ``-name
 value`` and ``--name value`` form, with ``-device cuda|cpu`` in place of
@@ -16,17 +17,25 @@ ground truth ``disp0GT.pfm``; layers {1%, 3%, 9%} of the width, error
 threshold 1.0 (x0.5 Q, x2 F) (``main.cpp:331-421``); init, ``-pmIterations``
 greedy sweeps and ``-iterations`` graph-cut sweeps of view 0.
 
+``-fuseSeeds N`` (N > 1) first solves seeds ``seed + 1 .. seed + N - 1``
+with the same schedule, one after the other and untimed, on the primary's
+energy; the timed solve then fuses each of their labelings into its result
+at every layer, coarsest first (the fusion move), and logs one more row.
+With ``-warmup 1`` a throwaway fusion on the warm-up solve's state comes
+first, so ``time.txt`` holds no first-use costs of the fusion path.
+
 Outputs: ``disp0.pfm``, ``time.txt`` and ``debug/`` with the per-sweep
 images and ``log_output.txt``.
 
 Not taken yet, each refused with the ROADMAP item it waits for:
-``-mode MiddV2`` (A11), ``-doDual 1`` (A10), ``-fuseSeeds`` > 1 (A12),
-``-volume mccnn`` (A13), ``-volPrecision bfloat16``; ``-laneFriendly 1`` is
-TPU sizing and is never taken.
+``-mode MiddV2`` (A11), ``-doDual 1`` (A10), ``-volume mccnn`` (A13),
+``-volPrecision bfloat16``; ``-laneFriendly 1`` is TPU sizing and is never
+taken.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -36,7 +45,7 @@ import torch
 
 from ..config import PARAMS_GF, Options
 from ..models.engine import (COARSE_PROPOSERS, LAYER0_PROPOSERS,
-                             LocalExpansionSolver)
+                             LocalExpansionSolver, init_from_labeling)
 from ..models.evaluator import Evaluator
 from ..ops import plane as plane_ops
 from ..utils import acrt, datasets, pfm
@@ -62,8 +71,6 @@ def _refuse_unported(ns) -> None:
                               "not ported yet (ROADMAP A11)"),
         (ns.doDual != 0, "-doDual needs the second view and the "
                          "post-process, not ported yet (ROADMAP A10)"),
-        (ns.fuseSeeds > 1, "-fuseSeeds > 1 needs fusion moves, not ported "
-                           "yet (ROADMAP A12)"),
         (ns.volume == "mccnn", "-volume mccnn needs the MC-CNN volume, not "
                                "ported yet (ROADMAP A13)"),
         (ns.volPrecision == "bfloat16", "-volPrecision bfloat16 is not "
@@ -110,13 +117,14 @@ def parse_args(argv: Optional[List[str]] = None) -> Options:
     _refuse_unported(ns)
 
     # -threadNum is accepted for parity with the JAX CLI and does nothing;
-    # -doDual 0, -fuseSeeds 0|1 and -volume acrt are the only values taken.
+    # -doDual 0 and -volume acrt are the only values taken.
     return Options(
         mode=ns.mode, output_dir=ns.outputDir, target_dir=ns.targetDir,
         iterations=ns.iterations, pm_iterations=ns.pmIterations,
         ndisp=ns.ndisp, smooth_weight=ns.smooth_weight,
         mc_threshold=ns.mc_threshold, filter_radius=ns.filterRadious,
-        seed=ns.seed, warmup=ns.warmup, vol_precision=ns.volPrecision,
+        seed=ns.seed, fuse_seeds=ns.fuseSeeds, warmup=ns.warmup,
+        vol_precision=ns.volPrecision,
         unary_backend="dma" if ns.unaryBackend == "dma" else "auto",
         device=ns.device, show=bool(ns.show))
 
@@ -130,7 +138,7 @@ def print_options(opt: Options):
                       ("filterRadious", opt.filter_radius),
                       ("smooth_weight", opt.resolve_smooth_weight()),
                       ("mc_threshold", opt.mc_threshold),
-                      ("seed", opt.seed),
+                      ("seed", opt.seed), ("fuseSeeds", opt.fuse_seeds),
                       ("unaryBackend", opt.unary_backend),
                       ("device", opt.device)]:
         print(f"{name:<15}: {val}")
@@ -153,6 +161,11 @@ def _make_solver(pair: datasets.StereoPair, opt: Options, layers, vols):
     return solver
 
 
+def _synchronize(solver: LocalExpansionSolver) -> None:
+    if solver.device.type == "cuda":
+        torch.cuda.synchronize(solver.device)
+
+
 def warm_up(solver: LocalExpansionSolver, opt: Options) -> None:
     """The counterpart of the JAX solver's ``precompile``: a throwaway
     solve of the same problem with at most one sweep of each kind, before
@@ -161,13 +174,43 @@ def warm_up(solver: LocalExpansionSolver, opt: Options) -> None:
     t0 = time.perf_counter()
     solver.run(iterations=min(opt.iterations, 1),
                pm_iterations=min(opt.pm_iterations, 1))
-    if solver.device.type == "cuda":
-        torch.cuda.synchronize(solver.device)
+    _synchronize(solver)
     print(f"warm-up solve in {time.perf_counter() - t0:.1f} s")
 
 
+def solve_aux_seeds(solver: LocalExpansionSolver, opt: Options, make_aux):
+    """-fuseSeeds N: solves seeds seed + 1 .. seed + N - 1 one after the
+    other with the run's schedule, each on the primary solver's energy
+    (the same energy; building it again would cost the host set-up once
+    per seed). Returns their [H, W, 4] labelings."""
+    solver.finalize()
+    labelings = []
+    for i in range(1, opt.fuse_seeds):
+        t0 = time.perf_counter()
+        aux = make_aux(opt.seed + i)
+        aux.data, aux.cfg = solver.data, solver.cfg
+        labelings.append(aux.run(opt.iterations,
+                                 pm_iterations=opt.pm_iterations))
+        _synchronize(solver)
+        print(f"fuseSeeds: solved auxiliary seed {opt.seed + i} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return labelings
+
+
+def warm_up_fusion(solver: LocalExpansionSolver, labeling) -> None:
+    """A throwaway fusion of ``labeling`` into the warm-up solve's state at
+    every layer: the first-use costs of the fusion path (the min-cut
+    kernel's build among them) before the timer, as the JAX CLI does."""
+    t0 = time.perf_counter()
+    solver._fuse_layers(*init_from_labeling(solver.data, solver.cfg,
+                                            labeling, 0),
+                        0, tuple(reversed(range(len(solver.layers)))))
+    _synchronize(solver)
+    print(f"warm-up fusion in {time.perf_counter() - t0:.1f} s")
+
+
 def _run(solver: LocalExpansionSolver, pair, opt: Options,
-         error_thresh: float, gt_precision: float):
+         error_thresh: float, gt_precision: float, make_aux):
     out_dir = opt.output_dir or "."
     debug_dir = os.path.join(out_dir, "debug")
     os.makedirs(debug_dir, exist_ok=True)
@@ -179,10 +222,16 @@ def _run(solver: LocalExpansionSolver, pair, opt: Options,
     ev.set_error_threshold(error_thresh)
     if opt.warmup:
         warm_up(solver, opt)
+    fuse_with = None
+    if opt.fuse_seeds > 1:
+        fuse_with = solve_aux_seeds(solver, opt, make_aux)
+        if opt.warmup:
+            warm_up_fusion(solver, fuse_with[0])
     solver.set_evaluator(ev)
     try:
         labeling = solver.run(opt.iterations,
-                              pm_iterations=opt.pm_iterations)
+                              pm_iterations=opt.pm_iterations,
+                              fuse_with=fuse_with)
         disp = plane_ops.disparity_map(labeling).cpu().numpy()
         pfm.write_pfm(os.path.join(out_dir, "disp0.pfm"), disp)
         with open(os.path.join(out_dir, "time.txt"), "w") as f:
@@ -232,10 +281,14 @@ def run_midv3(opt: Options):
     print(f"ndisp = {pair.ndisp}")
     w = pair.im0.shape[1]
     vol_l, vol_r = load_v3_volumes(opt.target_dir, pair)
-    solver = _make_solver(pair, opt, v3_layers(w), (vol_l, vol_r))
+    layers = v3_layers(w)
+    solver = _make_solver(pair, opt, layers, (vol_l, vol_r))
     return _run(solver, pair, opt,
                 error_thresh=v3_error_threshold(opt.target_dir),
-                gt_precision=-1.0)
+                gt_precision=-1.0,
+                make_aux=lambda seed: _make_solver(
+                    pair, dataclasses.replace(opt, seed=seed), layers,
+                    (vol_l, vol_r)))
 
 
 def main(argv: Optional[List[str]] = None) -> int:

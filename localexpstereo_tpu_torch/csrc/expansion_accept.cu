@@ -12,25 +12,10 @@
 // the S*S pixels of the region. All per-region planes live in a global
 // workspace [N, kPlanes, S, S] allocated by the wrapper: at S = 387 one
 // plane is 599 KB, more than the 227 KB of shared memory a block may use.
-// Phases are separated by __syncthreads(); every loop condition is a
-// __syncthreads_or() that all threads of the block reach, and no thread
-// returns early.
-//
-// The solve keeps the Jacobi semantics of mincut_pallas._solver_core, so a
-// solve truncated by the round cap matches the plain version too:
-//   - global relabel: min-plus BFS to its unique fixpoint. The fixpoint does
-//     not depend on the iteration order, so the relaxation runs in place
-//     (Gauss-Seidel), alternating the pixel order between passes;
-//   - push: each active node takes at most one admissible direction, in the
-//     order sink, 4 forward edges, 4 backward edges; a direction code and an
-//     amount per pixel replace the 9 flow planes;
-//   - apply: inflow sums the neighbours' pushes in the reference order
-//     (forward k = 0..3 from p - dir, then backward k = 0..3 from p + dir),
-//     then e = (e - outflow) + inflow;
-//   - relabel: reads the pre-sweep heights and writes a second buffer;
-//   - backward residuals are rebuilt as fw0 - capfw, never carried.
-// Built with --fmad=false so every table entry, excess sum and guard term
-// rounds like the plain version.
+// Phases are separated by __syncthreads(). The min-cut solve is the shared
+// push-relabel core of push_relabel.cuh (Jacobi semantics of
+// mincut_pallas._solver_core). Built with --fmad=false so every table
+// entry, excess sum and guard term rounds like the plain version.
 //
 // What bounds it on an H100: the solve is a chain of block-wide barriers
 // over state that sits in L2/global memory; the work per barrier is a few
@@ -43,11 +28,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "push_relabel.cuh"
 
-constexpr int kThreads = 1024;
-constexpr float kInf = 3e38f;
-constexpr float kEps = 1e-7f;
+namespace {
 
 // Workspace planes per region (ops/mincut_cuda.py: WORK_PLANES).
 constexpr int kC00 = 0;     // 4 planes: pairwise table, both keep
@@ -62,187 +45,9 @@ constexpr int kH2 = 17;
 constexpr int kCapFw = 18;  // 4 planes: residual forward capacities
 constexpr int kFw0 = 22;    // 4 planes: initial forward capacities
 constexpr int kAmt = 26;    // pushed amount
-constexpr int kDir = 27;    // push direction code (int): -1 none, 0..7, 8 sink
+constexpr int kDir = 27;    // push direction code (int)
 constexpr int kAcc = 28;    // unguarded accept mask (0/1)
 constexpr int kPlanes = 29;
-
-// pairwise.NEIGHBORS and pairwise.FORWARD.
-__constant__ int kNbDx[8] = {-1, 1, 0, 0, -1, 1, -1, 1};
-__constant__ int kNbDy[8] = {0, 0, -1, 1, -1, -1, 1, 1};
-__constant__ int kFwd[4] = {1, 3, 6, 7};
-
-struct Region {
-  int s, ss;
-  float hmax;
-  float* w;
-
-  __device__ float* plane(int k) const { return w + (size_t)k * ss; }
-  __device__ bool inside(int x, int y) const {
-    return x >= 0 && x < s && y >= 0 && y < s;
-  }
-  // Residual capacity from p = (x, y) along out-direction j (0..3 forward
-  // edge j, 4..7 backward edge j-4), and the neighbour's index; 0 when the
-  // neighbour lies outside the window.
-  __device__ float out_cap(int j, int p, int x, int y, int* q) const {
-    int k = j & 3;
-    int dx = kNbDx[kFwd[k]], dy = kNbDy[kFwd[k]];
-    if (j >= 4) { dx = -dx; dy = -dy; }
-    if (!inside(x + dx, y + dy)) { *q = -1; return 0.0f; }
-    *q = p + dy * s + dx;
-    if (j < 4) return plane(kCapFw + k)[p];
-    return plane(kFw0 + k)[*q] - plane(kCapFw + k)[*q];
-  }
-};
-
-// Global relabel into h: exact residual distance to the sink, hmax where
-// the sink is unreachable.
-__device__ void bfs(const Region& r, float* h) {
-  const float* capt = r.plane(kCapT);
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x)
-    h[p] = capt[p] > kEps ? 1.0f : kInf;
-  __syncthreads();
-  int pass = 0;
-  int changed;
-  do {
-    changed = 0;
-    for (int i = threadIdx.x; i < r.ss; i += blockDim.x) {
-      int p = (pass & 1) ? r.ss - 1 - i : i;
-      int x = p % r.s, y = p / r.s;
-      float cur = h[p];
-      float best = cur;
-      for (int j = 0; j < 8; ++j) {
-        int q;
-        float cap = r.out_cap(j, p, x, y, &q);
-        if (cap > kEps) best = fminf(best, h[q] + 1.0f);
-      }
-      if (best < cur) {
-        h[p] = best;
-        changed = 1;
-      }
-    }
-    ++pass;
-  } while (__syncthreads_or(changed));
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x)
-    if (h[p] >= kInf) h[p] = r.hmax;
-  __syncthreads();
-}
-
-// Any node with excess below hmax (uniform across the block).
-__device__ int any_active(const Region& r, const float* h) {
-  const float* e = r.plane(kE);
-  int act = 0;
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x)
-    act |= (e[p] > kEps) && (h[p] < r.hmax);
-  return __syncthreads_or(act);
-}
-
-// One push / apply / relabel sweep; heights move from h to h2. Returns
-// whether any node is still active (uniform across the block).
-__device__ int sweep(const Region& r, const float* h, float* h2) {
-  float* e = r.plane(kE);
-  float* capt = r.plane(kCapT);
-  float* amt = r.plane(kAmt);
-  int* dir = reinterpret_cast<int*>(r.plane(kDir));
-
-  // Push phase: choose one admissible direction per active node.
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
-    int x = p % r.s, y = p / r.s;
-    float ep = e[p], hp = h[p];
-    int code = -1;
-    float a = 0.0f;
-    if (ep > kEps && hp < r.hmax) {
-      if (capt[p] > kEps && hp == 1.0f) {
-        code = 8;
-        a = fminf(ep, capt[p]);
-      } else {
-        for (int j = 0; j < 8; ++j) {
-          int q;
-          float cap = r.out_cap(j, p, x, y, &q);
-          float nbh = q >= 0 ? h[q] : r.hmax;
-          if (cap > kEps && hp == nbh + 1.0f) {
-            code = j;
-            a = fminf(ep, cap);
-            break;
-          }
-        }
-      }
-    }
-    dir[p] = code;
-    amt[p] = a;
-  }
-  __syncthreads();
-
-  // Apply phase: each node updates its own excess and capacities.
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
-    int x = p % r.s, y = p / r.s;
-    int code = dir[p];
-    float a = amt[p];
-    float outflow = code >= 0 ? a : 0.0f;
-    if (code == 8) capt[p] = capt[p] - a;
-    float inflow = 0.0f;
-    for (int k = 0; k < 4; ++k) {          // forward pushes from p - dir_k
-      int dx = kNbDx[kFwd[k]], dy = kNbDy[kFwd[k]];
-      if (r.inside(x - dx, y - dy)) {
-        int q = p - dy * r.s - dx;
-        if (dir[q] == k) inflow = inflow + amt[q];
-      }
-    }
-    for (int k = 0; k < 4; ++k) {          // backward pushes from p + dir_k
-      int dx = kNbDx[kFwd[k]], dy = kNbDy[kFwd[k]];
-      float* capfw = r.plane(kCapFw + k);
-      float c = capfw[p];
-      if (code == k) c = c - a;
-      if (r.inside(x + dx, y + dy)) {
-        int q = p + dy * r.s + dx;
-        if (dir[q] == 4 + k) {
-          c = c + amt[q];
-          inflow = inflow + amt[q];
-        }
-      }
-      capfw[p] = c;
-    }
-    e[p] = (e[p] - outflow) + inflow;
-  }
-  __syncthreads();
-
-  // Relabel phase: nodes that could not push rise to 1 + the lowest
-  // neighbour they have residual capacity to.
-  int act = 0;
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
-    int x = p % r.s, y = p / r.s;
-    float ep = e[p], hp = h[p];
-    float best = capt[p] > kEps ? 0.0f : kInf;
-    for (int j = 0; j < 8; ++j) {
-      int q;
-      float cap = r.out_cap(j, p, x, y, &q);
-      if (cap > kEps) best = fminf(best, h[q]);
-    }
-    bool active = ep > kEps && hp < r.hmax;
-    bool could_push = best <= hp - 1.0f;
-    float new_h = best >= kInf ? r.hmax : fminf(best + 1.0f, r.hmax);
-    float hn = (active && !could_push) ? fmaxf(hp, new_h) : hp;
-    h2[p] = hn;
-    act |= (ep > kEps) && (hn < r.hmax);
-  }
-  return __syncthreads_or(act);
-}
-
-__device__ float block_sum(float v) {
-  __shared__ float partial[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) partial[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? partial[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) partial[0] = v;
-  }
-  __syncthreads();
-  float total = partial[0];
-  __syncthreads();
-  return total;
-}
 
 __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
     const float* __restrict__ halo, const float* __restrict__ props,
@@ -256,7 +61,14 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
   r.s = s;
   r.ss = s * s;
   r.hmax = (float)(s * s + 2);
-  r.w = work + (size_t)n * kPlanes * r.ss;
+  float* const w = work + (size_t)n * kPlanes * r.ss;
+  auto plane = [&](int k) { return w + (size_t)k * r.ss; };
+  r.e = plane(kE);
+  r.capt = plane(kCapT);
+  r.capfw = plane(kCapFw);
+  r.fw0 = plane(kFw0);
+  r.amt = plane(kAmt);
+  r.dir = reinterpret_cast<int*>(plane(kDir));
   const int hs = s + 2;
   const float* hal = halo + (size_t)n * hs * hs * 4;
   const float* cf = coeff8 + (size_t)n * 8 * r.ss;
@@ -292,11 +104,11 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
       const float d_ee_le = d0 + a0 * dx + b0 * dy;
       const float d1q = d1h(qx, qy);
       const float w = cf[(size_t)k * r.ss + p] * lam;
-      r.plane(kC00 + i)[p] =
+      plane(kC00 + i)[p] =
           fminf(fabsf(d0 - d_le_ee) + fabsf(d_ee_le - d0q), tau) * w;
-      r.plane(kC01 + i)[p] =
+      plane(kC01 + i)[p] =
           fminf(fabsf(d0 - d1) + fabsf(d_ee_le - d1q), tau) * w;
-      r.plane(kC10 + i)[p] =
+      plane(kC10 + i)[p] =
           fminf(fabsf(d1 - d_le_ee) + fabsf(d1q - d0q), tau) * w;
     }
     float t0b = 0.0f, t1b = 0.0f;
@@ -313,53 +125,39 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
       t1b += fminf(fabsf(d1 - dq_p) + fabsf(d1_q - d0q), tau) * w;
     }
     const size_t g = (size_t)n * r.ss + p;
-    r.plane(kT0)[p] = ccost[g] + t0b;
-    r.plane(kT1)[p] = pcost[g] + t1b;
+    plane(kT0)[p] = ccost[g] + t0b;
+    plane(kT1)[p] = pcost[g] + t1b;
   }
   __syncthreads();
 
   // ---- submodular graph build (mincut_pallas.py:280-293) -----------------
   for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
     const int x = p % s, y = p / s;
-    float sigma = r.plane(kT0)[p];
+    float sigma = plane(kT0)[p];
     for (int i = 0; i < 4; ++i) {
       const int dx = kNbDx[kFwd[i]], dy = kNbDy[kFwd[i]];
       const float em = r.inside(x + dx, y + dy) ? 1.0f : 0.0f;
-      const float c00 = r.plane(kC00 + i)[p], c01 = r.plane(kC01 + i)[p],
-                  c10 = r.plane(kC10 + i)[p];
+      const float c00 = plane(kC00 + i)[p], c01 = plane(kC01 + i)[p],
+                  c10 = plane(kC10 + i)[p];
       float d_minus_c = 0.0f;  // (c00 - c01) of the edge (p - dir, p)
       if (r.inside(x - dx, y - dy)) {
         const int q = p - dy * s - dx;
-        d_minus_c = (r.plane(kC00 + i)[q] - r.plane(kC01 + i)[q]) * 1.0f;
+        d_minus_c = (plane(kC00 + i)[q] - plane(kC01 + i)[q]) * 1.0f;
       }
       sigma = sigma + c01 * em + d_minus_c;
       const float fw = fmaxf(0.0f, c10 + c01 - c00) * em;
-      r.plane(kFw0 + i)[p] = fw;
-      r.plane(kCapFw + i)[p] = fw;
+      plane(kFw0 + i)[p] = fw;
+      plane(kCapFw + i)[p] = fw;
     }
-    const float nu = sigma - r.plane(kT1)[p];
-    r.plane(kE)[p] = fmaxf(nu, 0.0f);
-    r.plane(kCapT)[p] = fmaxf(-nu, 0.0f);
+    const float nu = sigma - plane(kT1)[p];
+    plane(kE)[p] = fmaxf(nu, 0.0f);
+    plane(kCapT)[p] = fmaxf(-nu, 0.0f);
   }
   __syncthreads();
 
   // ---- push-relabel solve (mincut_pallas.py:139-174) ---------------------
-  float* h = r.plane(kH);
-  float* h2 = r.plane(kH2);
-  int live = 1;
-  for (int rounds = 0; live && rounds < max_rounds; ++rounds) {
-    bfs(r, h);
-    live = any_active(r, h);
-    int act = live;
-    for (int k = 0; k < sweeps && act; ++k) {
-      act = sweep(r, h, h2);
-      float* t = h;
-      h = h2;
-      h2 = t;
-    }
-  }
-  bfs(r, h);
-  float* acc = r.plane(kAcc);
+  const float* h = push_relabel(r, plane(kH), plane(kH2), max_rounds, sweeps);
+  float* acc = plane(kAcc);
   for (int p = threadIdx.x; p < r.ss; p += blockDim.x)
     acc[p] = h[p] >= r.hmax ? 1.0f : 0.0f;
   __syncthreads();
@@ -369,16 +167,16 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
   for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
     const int x = p % s, y = p / s;
     const float xm = acc[p];
-    float contrib = (r.plane(kT1)[p] - r.plane(kT0)[p]) * xm;
+    float contrib = (plane(kT1)[p] - plane(kT0)[p]) * xm;
     for (int i = 0; i < 4; ++i) {
       const int dx = kNbDx[kFwd[i]], dy = kNbDy[kFwd[i]];
       const bool in = r.inside(x + dx, y + dy);
       const float em = in ? 1.0f : 0.0f;
       const float xq = in ? acc[p + dy * s + dx] : 0.0f;
-      const float c00 = r.plane(kC00 + i)[p];
+      const float c00 = plane(kC00 + i)[p];
       const float pair = c00 * (1.0f - xm) * (1.0f - xq)
-          + r.plane(kC01 + i)[p] * (1.0f - xm) * xq
-          + r.plane(kC10 + i)[p] * xm * (1.0f - xq);
+          + plane(kC01 + i)[p] * (1.0f - xm) * xq
+          + plane(kC10 + i)[p] * xm * (1.0f - xq);
       contrib = contrib + (pair - c00) * em;
     }
     part += contrib;

@@ -70,13 +70,15 @@ def _quantize_vol(stacked: np.ndarray, th_col: float):
 def build_energy(im0_bgr: np.ndarray, im1_bgr: np.ndarray,
                  params: Parameters, max_disp: float, pad: int,
                  vol0: np.ndarray, vol1: np.ndarray, min_disp: float = 0.0,
-                 max_vdisp: float = 0.0, vol_pad: int = 0, device="cpu",
+                 max_vdisp: float = 0.0, vol_pad: int = 0, device="cuda",
                  vol_dtype: str = "uint8"):
     """Builds (EnergyData, EnergyConfig) for one stereo pair with cost
     volumes ([D, H, W] each), stored uint8-quantized (``vol_dtype``
     "uint8", the JAX package's default) or as float32. Guide statistics are
     computed on the host in float64 (``StereoEnergy.h:673-681``); the
-    tensors then move to ``device``."""
+    tensors then move to ``device`` (the card unless the caller asks for
+    the CPU; see :func:`resolve_device`)."""
+    device = resolve_device(device)
     if vol_dtype not in ("uint8", "float32"):
         raise ValueError(f"vol_dtype {vol_dtype!r}: the port stores the "
                          f"volume as uint8 or float32")
@@ -117,6 +119,16 @@ def build_energy(im0_bgr: np.ndarray, im1_bgr: np.ndarray,
                     np.stack(coeffs), vol, device), cfg
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device on a host
+    without one (the port's entry points never fall back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+    return device
+
+
 def _to_data(guide, gf_mean, gf_inv, coeff8, vol, device) -> EnergyData:
     def dev(x, dtype=None):
         return torch.from_numpy(np.array(x, dtype)).to(device)
@@ -127,7 +139,7 @@ def _to_data(guide, gf_mean, gf_inv, coeff8, vol, device) -> EnergyData:
                       coeff8=dev(coeff8, np.float32), vol=dev(vol))
 
 
-def energy_from_numpy(data, cfg, device="cpu"):
+def energy_from_numpy(data, cfg, device="cuda"):
     """Carries an energy across from another implementation.
 
     ``data`` is any object with array attributes ``guide``, ``gf_mean``,
@@ -146,14 +158,16 @@ def energy_from_numpy(data, cfg, device="cpu"):
         max_disp=float(cfg.max_disp), max_vdisp=float(cfg.max_vdisp),
         vol_pad=int(cfg.vol_pad), vol_scale=float(cfg.vol_scale),
         vol_zero=float(cfg.vol_zero))
+    device = resolve_device(device)
     arrays = [np.asarray(getattr(data, k)) for k in
               ("guide", "gf_mean", "gf_inv", "coeff8", "vol")]
     return _to_data(*arrays, device), new_cfg
 
 
-def state_from_numpy(labeling_m, cost_m, device="cpu"):
+def state_from_numpy(labeling_m, cost_m, device="cuda"):
     """(labeling_m [Hp, Wp, 4], cost_m [Hp, Wp]) padded state as float32
     tensors on ``device``."""
+    device = resolve_device(device)
     return tuple(torch.from_numpy(np.array(x, np.float32)).to(device)
                  for x in (labeling_m, cost_m))
 
@@ -238,3 +252,39 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
     tmask = in_image_windows(cfg, ox, oy, target_off, target_size)
     q = torch.where(valid, q, COST_FOR_INVALID)
     return q * tmask
+
+
+def pixel_unary(data: EnergyData, cfg: EnergyConfig, mode: int,
+                labeling: torch.Tensor,
+                window_budget: int = 1 << 16) -> torch.Tensor:
+    """Unary of every pixel under its own label over a 1 x 1 target window
+    (filter window 2R + 1): the warm start of ``initCurrentFast``
+    (``FastGCStereo.h:117-130``; the JAX engine's ``_warmstart_chunk``).
+
+    Every pixel is a region of a stride-1 grid. The statistic windows are
+    cut in bands of image rows, at most ``window_budget`` windows a band;
+    each value depends on its own window only, so the banding does not
+    change it. The plain sampler runs on every unary route, as in the JAX
+    engine.
+
+    Args:
+      labeling: [H, W, 4] labels, on the energy's device.
+    Returns:
+      [H, W] float32 costs.
+    """
+    h, w = cfg.height, cfg.width
+    dev = labeling.device
+    rows = max(1, window_budget // w)
+    xs = torch.arange(w, device=dev)
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    for y0 in range(0, h, rows):
+        nr = min(rows, h - y0)
+        ox = xs.repeat(nr)
+        oy = torch.arange(y0, y0 + nr, device=dev).repeat_interleave(w)
+        stats = dense_filter_windows(data, cfg, mode, ox, oy, 0, y0, nr, w,
+                                     1, 0, 1)
+        q = unary_windows(data, cfg, mode,
+                          labeling[y0:y0 + nr].reshape(-1, 4).contiguous(),
+                          ox, oy, 0, 1, stats)
+        out[y0:y0 + nr] = q.reshape(nr, w)
+    return out

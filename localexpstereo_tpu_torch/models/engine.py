@@ -9,6 +9,9 @@ Schedule (``FastGCStereo.h:133-226``):
   iterations sweeps with graph-cut acceptance          -> doGC = true
   per sweep: layers in order, 16 colors sequentially, proposers per region
   in plan order (each proposal sees the state the previous one left).
+  fusion (optional, ``run(fuse_with=...)``): each external labeling's
+  per-pixel unary, then one 16-color fusion sweep per layer, coarsest
+  first (the reference's unused ``fusionMoveBK`` hook).
 
 One color set is processed as a batch: all its regions form a regular grid
 at stride 4s, every proposal of the plan is evaluated for all of them with
@@ -236,6 +239,69 @@ def init_step(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
     return labeling_m, cost_m
 
 
+def init_from_labeling(data: energy_mod.EnergyData,
+                       cfg: energy_mod.EnergyConfig, labeling, mode: int):
+    """Padded (labeling_m, cost_m) state of a given [H, W, 4] labeling
+    (numpy or tensor), every pixel's unary evaluated under its own label:
+    the warm start of ``initCurrentFast`` (``FastGCStereo.h:117-130``)."""
+    h, w, p = cfg.height, cfg.width, cfg.pad
+    dev = data.coeff8.device
+    if not isinstance(labeling, torch.Tensor):
+        labeling = np.array(labeling, np.float32)
+    lab = torch.as_tensor(labeling, dtype=torch.float32, device=dev)
+    if tuple(lab.shape) != (h, w, 4):
+        raise ValueError(f"labeling: expected {(h, w, 4)}, got "
+                         f"{tuple(lab.shape)}")
+    labeling_m = torch.zeros((h + 2 * p, w + 2 * p, 4), dtype=torch.float32,
+                             device=dev)
+    cost_m = torch.zeros(labeling_m.shape[:2], dtype=torch.float32,
+                         device=dev)
+    labeling_m[p:p + h, p:p + w] = lab
+    cost_m[p:p + h, p:p + w] = energy_mod.pixel_unary(data, cfg, mode, lab)
+    return labeling_m, cost_m
+
+
+def fusion_color_step(data: energy_mod.EnergyData,
+                      cfg: energy_mod.EnergyConfig, labeling_m: torch.Tensor,
+                      cost_m: torch.Tensor, ext_lab_m: torch.Tensor,
+                      ext_cost_m: torch.Tensor, ox: torch.Tensor,
+                      oy: torch.Tensor, rmask: torch.Tensor, cox: int,
+                      coy: int, *, unit_size: int, nbx: int, nby: int,
+                      mode: int) -> None:
+    """One (layer, color) fusion move, updating the state in place: every
+    region of the color solves a binary min-cut choosing per pixel between
+    its current and the external label (``fusionMoveBK``,
+    ``FastGCStereo.h:241-410``), guarded by the exact region energy
+    change, as the truncated non-submodular edges make the cut
+    approximate."""
+    s = unit_size
+    ss = 3 * s
+    t4 = 4 * s
+    p = cfg.pad
+    tmask = energy_mod.in_image_windows(cfg, ox, oy, -s, ss) > 0
+    halo0 = windows.dense_windows(labeling_m, coy + p - 1, cox + p - 1, nby,
+                                  nbx, t4, ss + 2)
+    halo1 = windows.dense_windows(ext_lab_m, coy + p - 1, cox + p - 1, nby,
+                                  nbx, t4, ss + 2)
+    ccost = windows.dense_windows(cost_m, coy + p, cox + p, nby, nbx, t4, ss)
+    pcost = windows.dense_windows(ext_cost_m, coy + p, cox + p, nby, nbx, t4,
+                                  ss)
+    coeff_win = windows.dense_windows_leading(data.coeff8[mode], coy + p,
+                                              cox + p, nby, nbx, t4, ss)
+    terms = mincut_cuda.fusion_terms(halo0, halo1, (ox - s).to(torch.float32),
+                                     (oy - s).to(torch.float32), coeff_win,
+                                     ccost, pcost, cfg.params.lambda_,
+                                     cfg.params.th_smooth)
+    accept = mincut_cuda.fusion_accept(*terms)
+    delta = mincut.fusion_move_energy_delta(accept, *terms)
+    accept = accept & (delta <= 0.0)[:, None, None] & tmask \
+        & rmask[:, None, None]
+    _write_canvas(labeling_m, cost_m, coy + p, cox + p,
+                  _to_canvas(accept, nby, nbx, s),
+                  _to_canvas(pcost, nby, nbx, s),
+                  _to_canvas(halo1[:, 1:-1, 1:-1], nby, nbx, s))
+
+
 def energy_audit(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
                  labeling_m: torch.Tensor, cost_m: torch.Tensor, mode: int):
     """(total, data, smooth) energy of a view (``Evaluator.h:119-121``)."""
@@ -254,8 +320,10 @@ class LocalExpansionSolver:
     for one view of a cost-volume (V3) problem.
 
     ``device`` holds every tensor of :class:`energy.EnergyData` and the
-    padded state; on a CUDA device the graph-cut sweeps run the
-    hand-written expansion kernel, on the CPU its plain version.
+    padded state: the card (the default; building the energy raises
+    without one) or, when asked, the CPU. On a CUDA device the graph-cut
+    sweeps run the hand-written expansion kernel and the fusion sweeps the
+    min-cut kernel, on the CPU their plain versions.
     ``unary_backend`` "dma" routes the sweeps' unary through the fused
     sampling + guided-filter kernel (its plain version on the CPU); "auto"
     keeps the plain sampler. ``vol_dtype``: "uint8" or "float32" volume
@@ -265,7 +333,7 @@ class LocalExpansionSolver:
     def __init__(self, im0_bgr: np.ndarray, im1_bgr: np.ndarray,
                  params: Parameters, max_disp: float, vol0: np.ndarray,
                  vol1: np.ndarray, min_disp: float = 0.0,
-                 max_vdisp: float = 0.0, seed: int = 0, device="cpu",
+                 max_vdisp: float = 0.0, seed: int = 0, device="cuda",
                  unary_backend: str = "auto", vol_dtype: str = "uint8"):
         if unary_backend not in ("auto", "dma"):
             raise ValueError(f"unary_backend {unary_backend!r}: the port "
@@ -339,9 +407,17 @@ class LocalExpansionSolver:
                         mode=mode)
 
     def run(self, iterations: int, view_modes: Sequence[int] = (0,),
-            pm_iterations: int = 0):
+            pm_iterations: int = 0, fuse_with=None):
         """Full optimization of view 0 (cf. ``FastGCStereo::run``). Returns
         the unpadded [H, W, 4] labeling as a tensor on the solver's device.
+
+        ``fuse_with``: external [H, W, 4] labelings (numpy or tensors, or
+        ``{0: labeling}`` dicts) fused into the solution after the
+        graph-cut sweeps, each at every layer, coarsest first: one
+        per-pixel unary evaluation of the labeling, one 16-color fusion
+        sweep per layer, then one more evaluator row at index
+        ``iterations + 1 + pm_iterations``. The energy ends no higher than
+        the plain solve's.
         """
         if tuple(view_modes) != (0,):
             raise NotImplementedError("the port solves view 0 only")
@@ -365,9 +441,52 @@ class LocalExpansionSolver:
                         rng.fold_in(root, 3000 + step))
             step += 1
             self._evaluate(mode, it + 1 + pm_iterations)
+        if fuse_with:
+            coarsest_first = tuple(reversed(range(len(self.layers))))
+            for ext in fuse_with:
+                lab = ext.get(mode) if isinstance(ext, dict) else ext
+                if lab is None:
+                    continue
+                self._fuse_layers(*init_from_labeling(self.data, self.cfg,
+                                                      lab, mode),
+                                  mode, coarsest_first)
+            self._evaluate(mode, iterations + 1 + pm_iterations)
         if self.evaluator is not None:
             self.evaluator.stop()
         return self._unpadded_labeling()
+
+    def fuse(self, labeling, mode: int = 0, layer_index: int = 0):
+        """Fuses an external [H, W, 4] labeling into the solution of a
+        completed :meth:`run` with one 16-color fusion sweep at one layer
+        (the reference's unused ``fusionMoveBK`` hook,
+        ``FastGCStereo.h:241-410``): each region's min-cut chooses per
+        pixel between its current and external label, guarded to be
+        energy-non-increasing. Returns the fused unpadded labeling."""
+        if self._state is None:
+            raise RuntimeError("fuse() needs a completed run()")
+        self._fuse_layers(*init_from_labeling(self.data, self.cfg, labeling,
+                                              mode),
+                          mode, (layer_index,))
+        return self._unpadded_labeling()
+
+    def _fuse_layers(self, ext_lab_m, ext_cost_m, mode: int, layer_indices):
+        """Fusion sweeps of the state against an evaluated external state
+        (from :func:`init_from_labeling`) at each listed layer."""
+        labeling_m, cost_m = self._state
+        dev = labeling_m.device
+        for li in layer_indices:
+            layer = self.layers[li]
+            for i0, j0 in layer.colors:
+                ox, oy, rmask = layer.color_regions(i0, j0)
+                cox, coy = layer.canvas_origin(i0, j0)
+                fusion_color_step(
+                    self.data, self.cfg, labeling_m, cost_m, ext_lab_m,
+                    ext_cost_m,
+                    torch.as_tensor(ox, dtype=torch.int64, device=dev),
+                    torch.as_tensor(oy, dtype=torch.int64, device=dev),
+                    torch.as_tensor(rmask, device=dev), cox, coy,
+                    unit_size=layer.unit_size, nbx=layer.nbx, nby=layer.nby,
+                    mode=mode)
 
     def _unpadded_labeling(self):
         p = self.cfg.pad

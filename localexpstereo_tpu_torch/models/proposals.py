@@ -11,11 +11,15 @@ stateless threefry key (:mod:`..ops.rng`), bit-exact with the JAX package.
   random in-cell label's disparity and jitter its normal by ``nr``;
 - RANSAC (``Proposer.h:155-312``): a fixed batch of 3-point hypotheses
   scored in parallel, then a least-squares refit on the best one's inliers.
+
+:func:`completion_labeling` makes a whole external labeling for the fusion
+move, on the host.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..ops import plane as plane_ops
@@ -187,3 +191,69 @@ def _first_argmax(x: torch.Tensor) -> torch.Tensor:
     m = x.max(dim=0, keepdim=True).values
     idx = torch.arange(x.shape[0], device=x.device)[:, None].expand_as(x)
     return torch.where(x == m, idx, x.shape[0]).min(dim=0).values
+
+
+def completion_labeling(labeling, image, block: int = 48,
+                        offset=(0, 0), irls_rounds: int = 3,
+                        texture_radius: int = 2) -> np.ndarray:
+    """Piecewise-planar completion of a labeling, on the host in numpy (a
+    copy of the JAX package's): an external labeling for
+    :meth:`..engine.LocalExpansionSolver.fuse`.
+
+    For each ``block`` x ``block`` tile (grid shifted by ``offset`` =
+    (dy, dx)), fits one plane to the tile's plane-induced disparities by
+    weighted least squares with Cauchy reweighting (``irls_rounds``
+    refits), each sample weighted by the local image texture (the standard
+    deviation of the gray level over a (2 ``texture_radius`` + 1)^2 box),
+    and paints the tile with it. A tile with no texture at all keeps
+    uniform weights in every round.
+
+    Args:
+      labeling: [H, W, 4] labels; image: [H, W, 3] float image.
+    Returns:
+      [H, W, 4] float32 labeling (v = 0 everywhere).
+    """
+    lab = np.asarray(labeling, np.float32)
+    h, w = lab.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    d = lab[..., 0] * xs + lab[..., 1] * ys + lab[..., 2]
+
+    gray = np.asarray(image, np.float32).mean(-1)
+    r = texture_radius
+    k = 2 * r + 1
+
+    def box(a):
+        p = np.pad(a, r, mode="edge")
+        c = np.cumsum(np.cumsum(p, 0), 1)
+        c = np.pad(c, ((1, 0), (1, 0)))
+        return (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)
+
+    conf = np.sqrt(np.maximum(box(gray * gray) - box(gray) ** 2, 0.0))
+
+    out = np.empty_like(lab)
+    oy0, ox0 = int(offset[0]) % block, int(offset[1]) % block
+    y_edges = [0] + list(range(oy0 if oy0 else block, h, block)) + [h]
+    x_edges = [0] + list(range(ox0 if ox0 else block, w, block)) + [w]
+    for y0, y1 in zip(y_edges, y_edges[1:]):
+        for x0, x1 in zip(x_edges, x_edges[1:]):
+            if y0 >= y1 or x0 >= x1:
+                continue
+            tx = xs[y0:y1, x0:x1].ravel()
+            ty = ys[y0:y1, x0:x1].ravel()
+            td = d[y0:y1, x0:x1].ravel()
+            base_w = conf[y0:y1, x0:x1].ravel().copy()
+            if not np.any(base_w > 0):
+                base_w = np.ones_like(base_w)
+            tw = base_w.copy()
+            cx_, cy_ = tx.mean(), ty.mean()
+            a_mat = np.stack([tx - cx_, ty - cy_, np.ones_like(tx)], -1)
+            for _ in range(irls_rounds + 1):
+                aw = a_mat * tw[:, None]
+                p = np.linalg.solve((aw.T @ a_mat) + 1e-6 * np.eye(3),
+                                    aw.T @ td)
+                tw = base_w / (1.0 + (a_mat @ p - td) ** 2)
+            out[y0:y1, x0:x1, 0] = p[0]
+            out[y0:y1, x0:x1, 1] = p[1]
+            out[y0:y1, x0:x1, 2] = p[2] - p[0] * cx_ - p[1] * cy_
+            out[y0:y1, x0:x1, 3] = 0.0
+    return out

@@ -29,20 +29,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 @dataclasses.dataclass(frozen=True)
 class Library:
-    """One kernel library: its name, its ``csrc/`` sources, and a function
+    """One kernel library: its name, its ``csrc/`` sources, a function
     that declares the ``argtypes``/``restype`` of its launchers on the
-    loaded ``ctypes.CDLL``."""
+    loaded ``ctypes.CDLL``, and the ``csrc/`` headers the sources include
+    (hashed with them, not compiled on their own)."""
 
     name: str
     sources: Tuple[str, ...]
     declare: Callable[[ctypes.CDLL], None]
+    headers: Tuple[str, ...] = ()
 
     def paths(self):
         return [_PKG / "csrc" / s for s in self.sources]
 
     def output(self) -> pathlib.Path:
         h = hashlib.sha256()
-        for src in self.paths():
+        for src in self.paths() + [_PKG / "csrc" / s for s in self.headers]:
             h.update(src.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.name}_{h.hexdigest()[:16]}.so"

@@ -10,12 +10,17 @@ to the sink by min-plus BFS to a fixpoint. The accepted set is the source
 side: the nodes that cannot reach the sink in the final residual graph
 (BK's ``what_segment == SOURCE``, ``FastGCStereo.h:553-559``).
 
-The core keeps the fused kernel's state: backward residuals are rebuilt as
-``fw0 - cap_fw`` (reverse capacities start at 0), as in
-``mincut_pallas._solver_core``; the CUDA kernel
-(``csrc/expansion_accept.cu``) runs the same phases per region.
+:func:`build_graph` folds an expansion move's tables, whose cost11 is 0;
+:func:`build_fusion_graph` a fusion move's, truncating its non-submodular
+edges. The core keeps the fused kernel's state: backward residuals are
+rebuilt as ``fw0 - cap_fw`` (reverse capacities start at 0), as in
+``mincut_pallas._solver_core``; the CUDA kernels
+(``csrc/expansion_accept.cu``, ``csrc/mincut_accept.cu``) run the same
+phases per region, from one core (``csrc/push_relabel.cuh``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +76,30 @@ def build_graph(t0: torch.Tensor, t1: torch.Tensor, c00: torch.Tensor,
             torch.stack(cap_fw, dim=1))
 
 
+def build_fusion_graph(t0: torch.Tensor, t1: torch.Tensor, c00: torch.Tensor,
+                       c01: torch.Tensor, c10: torch.Tensor,
+                       c11: torch.Tensor):
+    """Graph of the fusion move (``fusionMoveBK``, ``FastGCStereo.h:241-410``):
+    per forward edge with table (D, C, B, E), source-cap shifts C - E at p
+    and D - C + E at q, sink-cap shift E at q, capacity
+    ``max(0, B + C - D - E)`` (the reference's clamp of non-submodular
+    edges). Returns (e, cap_t, cap_fw) as :func:`build_graph` does."""
+    em = edge_masks(t0.shape[-1], t0.device)
+    sigma, tau = t0, t1
+    cap_fw = []
+    for k, (dx, dy) in enumerate(EDGE_DIRS):
+        cme = (c01[:, k] - c11[:, k]) * em[k]
+        dce = (c00[:, k] - c01[:, k] + c11[:, k]) * em[k]
+        sigma = sigma + cme + shift(dce, -dx, -dy, 0.0)
+        tau = tau + shift(c11[:, k] * em[k], -dx, -dy, 0.0)
+        cap = torch.clamp((c10[:, k] + c01[:, k]) - c00[:, k] - c11[:, k],
+                          min=0.0)
+        cap_fw.append(cap * em[k])
+    nu = sigma - tau
+    return (torch.clamp(nu, min=0.0), torch.clamp(-nu, min=0.0),
+            torch.stack(cap_fw, dim=1))
+
+
 def _out_caps(fw0, capfw):
     """Residual capacity from p outward along the 8 directions: 4 forward
     (cap_fw at p), then 4 backward (fw0 - cap_fw at p - dir)."""
@@ -91,18 +120,25 @@ def _neighbors(x: torch.Tensor, fill: float):
     return at
 
 
-def _bfs(capt, fw0, capfw, hmax: float) -> torch.Tensor:
+def _bfs(capt, fw0, capfw, hmax: float, passes=None) -> torch.Tensor:
     """Exact residual distance to the sink (min-plus relaxation to its
-    unique fixpoint); unreachable nodes get ``hmax``."""
+    unique fixpoint); unreachable nodes get ``hmax``. ``passes`` ([N]
+    int64), if given, counts each region's relaxation passes up to and
+    including its first that changes nothing."""
     # nb + 1 where the residual edge exists, else >= INF (never the min).
     step = torch.where(torch.stack([c for c, _, _ in
                                     _out_caps(fw0, capfw)]) > EPS, 1.0, INF)
     d = torch.where(capt > EPS, 1.0, INF)
+    if passes is not None:
+        passes += 1
     while True:
         at = _neighbors(d, INF)
         nb = torch.stack([at(dx, dy) for dx, dy in _DIRS8])
         best = torch.minimum(d, (nb + step).amin(0))
-        if not bool((best < d).any()):
+        changed = best < d
+        if passes is not None:
+            passes += changed.flatten(1).any(1)
+        if not bool(changed.any()):
             break
         d = best
     return torch.where(d >= INF, hmax, d)
@@ -149,31 +185,52 @@ def _sweep(fw0, e, h, capt, capfw, hmax: float):
 
 
 def solve_preflow(e: torch.Tensor, capt: torch.Tensor, cap_fw: torch.Tensor,
-                  max_global_rounds: int, sweeps_per_round: int):
+                  max_global_rounds: int, sweeps_per_round: int,
+                  stats: Optional[dict] = None):
     """Runs the preflow until no active node can reach the sink or the
     round cap is hit; returns the [N, S, S] bool accept mask.
 
     A round is a global relabel, then up to ``sweeps_per_round`` sweeps
     while any node is active. The loops test the whole batch; a region
     that has converged does nothing in later rounds, so this equals the
-    CUDA kernel's per-region loops.
+    CUDA kernels' per-region loops. ``stats``, if given, receives each
+    region's work in those per-region loops as [N] int64 tensors:
+    "rounds", "bfs_passes" (relaxation passes of every global relabel,
+    the final one included) and "sweeps".
     """
-    s = e.shape[-1]
+    n, s = e.shape[0], e.shape[-1]
     hmax = float(s * s + 2)
     fw0 = [cap_fw[:, k] for k in range(4)]
     capfw = list(fw0)
     h = torch.zeros_like(e)
+    count = stats is not None
+    if count:
+        for k in ("rounds", "bfs_passes", "sweeps"):
+            stats[k] = torch.zeros(n, dtype=torch.int64, device=e.device)
+        in_loop = torch.ones(n, dtype=torch.bool, device=e.device)
     rounds = 0
     live = True
     while live and rounds < max_global_rounds:
-        h = _bfs(capt, fw0, capfw, hmax)
-        live = bool(((e > EPS) & (h < hmax)).any())
+        passes = torch.zeros_like(stats["bfs_passes"]) if count else None
+        h = _bfs(capt, fw0, capfw, hmax, passes)
+        active = ((e > EPS) & (h < hmax)).flatten(1).any(1)
+        if count:
+            stats["rounds"] += in_loop
+            stats["bfs_passes"] += passes * in_loop
+            in_loop &= active
+        live = bool(active.any())
         k = 0
-        while k < sweeps_per_round and bool(((e > EPS) & (h < hmax)).any()):
+        while k < sweeps_per_round and live:
+            if count:
+                stats["sweeps"] += active
             e, h, capt, capfw = _sweep(fw0, e, h, capt, capfw, hmax)
+            active = ((e > EPS) & (h < hmax)).flatten(1).any(1)
+            if not bool(active.any()):
+                break
             k += 1
         rounds += 1
-    return _bfs(capt, fw0, capfw, hmax) >= hmax
+    return _bfs(capt, fw0, capfw, hmax,
+                stats["bfs_passes"] if count else None) >= hmax
 
 
 def mincut_accept(t0, t1, c00, c01, c10, max_global_rounds: int = 64,
@@ -188,14 +245,31 @@ def mincut_accept(t0, t1, c00, c01, c10, max_global_rounds: int = 64,
 def move_energy_delta(accept: torch.Tensor, t0, t1, c00, c01, c10):
     """Exact region energy change [N] of applying ``accept``: the
     monotonicity guard (cf. ``FastGCStereo.h:561-594``)."""
+    return _energy_delta(accept, t0, t1, (c00, c01, c10))
+
+
+def fusion_move_energy_delta(accept: torch.Tensor, t0, t1, c00, c01, c10,
+                             c11):
+    """:func:`move_energy_delta` of a fusion move, whose cost11 is not
+    identically zero (``StereoEnergy.h:331-394``): the guard of the fusion
+    sweep, where truncated non-submodular edges make the cut approximate."""
+    return _energy_delta(accept, t0, t1, (c00, c01, c10, c11))
+
+
+def _energy_delta(accept, t0, t1, tables):
+    """Energy change of ``accept`` against all-keep, with the pairwise
+    tables (c00, c01, c10[, c11]) summed in that order."""
     em = edge_masks(t0.shape[-1], t0.device)
     x = accept.to(torch.float32)
     delta = torch.sum((t1 - t0) * x, dim=(-2, -1))
     for k, (dx, dy) in enumerate(EDGE_DIRS):
         xq = shift(x, dx, dy, 0.0)
-        pair = (c00[:, k] * (1 - x) * (1 - xq) + c01[:, k] * (1 - x) * xq
-                + c10[:, k] * x * (1 - xq))
-        delta = delta + torch.sum((pair - c00[:, k]) * em[k], dim=(-2, -1))
+        states = ((1 - x) * (1 - xq), (1 - x) * xq, x * (1 - xq), x * xq)
+        pair = tables[0][:, k] * states[0]
+        for tbl, st in zip(tables[1:], states[1:]):
+            pair = pair + tbl[:, k] * st
+        delta = delta + torch.sum((pair - tables[0][:, k]) * em[k],
+                                  dim=(-2, -1))
     return delta
 
 

@@ -5,7 +5,9 @@
     w_pq = max(exp(-||I(p) - I(q)||_1 / omega), epsilon), 0 across the border
 
 (reference ``StereoEnergy.h:131-163, 225-236``). The window functions take a
-leading region axis (the JAX package vmaps per-window versions).
+leading region axis (the JAX package vmaps per-window versions): the
+expansion move's tables and boundary t-links against one proposal plane,
+and the fusion move's against a second per-pixel labeling.
 """
 from __future__ import annotations
 
@@ -177,4 +179,96 @@ def boundary_tlinks(labels_halo: torch.Tensor, proposal: torch.Tensor,
                               + torch.abs(d0_q - d0q), max=tau) * w
         t1 = t1 + torch.clamp(torch.abs(d1 - dq_p)
                               + torch.abs(d1_q - d0q), max=tau) * w
+    return t0, t1
+
+
+def _window_coords(ox: torch.Tensor, oy: torch.Tensor, s: int):
+    """Global (xs, ys) [N, S, S] float32 of each window's pixels."""
+    it = torch.arange(s, dtype=torch.float32, device=ox.device)
+    return (ox[:, None, None] + it[None, None, :],
+            oy[:, None, None] + it[None, :, None])
+
+
+def fusion_tables(labels0_halo: torch.Tensor, labels1_halo: torch.Tensor,
+                  coeff_fwd: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
+                  lambda_: float, tau: float):
+    """Pairwise tables for fusing two labelings, per window
+    (``computeSmoothnessTermsFusion``, ``StereoEnergy.h:331-394``): both
+    states are per-pixel labels, so cost11 is not identically zero.
+
+    Args:
+      labels0_halo, labels1_halo: [N, S+2, S+2, 4] current / external
+        labels of each window + 1-px halo.
+      coeff_fwd: [N, 4, S, S] forward-neighbor weights at p.
+      ox, oy: [N] float32 global coords of each window's (0, 0) pixel.
+    Returns:
+      (cost00, cost01, cost10, cost11), each [N, 4, S, S].
+    """
+    s = labels0_halo.shape[1] - 2
+    lab0 = _at(labels0_halo, s, 0, 0)
+    lab1 = _at(labels1_halo, s, 0, 0)
+    xs, ys = _window_coords(ox, oy, s)
+    d0_ee = _disp(lab0, xs, ys)
+    d1_ee = _disp(lab1, xs, ys)
+    outs = [[], [], [], []]
+    for i, k in enumerate(FORWARD):
+        dx, dy = NEIGHBORS[k]
+        xq, yq = xs + dx, ys + dy
+        lab0_nb = _at(labels0_halo, s, dx, dy)
+        lab1_nb = _at(labels1_halo, s, dx, dy)
+        w = coeff_fwd[:, i] * lambda_
+
+        def psi(lab_p, d_p_at_p, lab_q):
+            d_q_at_p = _disp(lab_q, xs, ys)
+            d_p_at_q = _disp(lab_p, xq, yq)
+            d_q_at_q = _disp(lab_q, xq, yq)
+            return torch.clamp(torch.abs(d_p_at_p - d_q_at_p)
+                               + torch.abs(d_p_at_q - d_q_at_q),
+                               max=tau) * w
+
+        outs[0].append(psi(lab0, d0_ee, lab0_nb))
+        outs[1].append(psi(lab0, d0_ee, lab1_nb))
+        outs[2].append(psi(lab1, d1_ee, lab0_nb))
+        outs[3].append(psi(lab1, d1_ee, lab1_nb))
+    return tuple(torch.stack(o, 1) for o in outs)
+
+
+def fusion_boundary_tlinks(labels0_halo: torch.Tensor,
+                           labels1_halo: torch.Tensor,
+                           coeff_all: torch.Tensor, ox: torch.Tensor,
+                           oy: torch.Tensor, lambda_: float, tau: float):
+    """Boundary absorption of the fusion move (``FastGCStereo.h:440-477``
+    with per-pixel proposals): the neighbours outside each window keep
+    their current (labeling-0) label; a switching pixel takes its own
+    labeling-1 label.
+
+    Args: as :func:`fusion_tables`, with coeff_all [N, 8, S, S].
+    Returns:
+      (t0, t1): [N, S, S] extra costs for keep / switch.
+    """
+    s = labels0_halo.shape[1] - 2
+    dev = labels0_halo.device
+    lab0 = _at(labels0_halo, s, 0, 0)
+    lab1 = _at(labels1_halo, s, 0, 0)
+    xs, ys = _window_coords(ox, oy, s)
+    iy = torch.arange(s, device=dev)[:, None]
+    ix = torch.arange(s, device=dev)[None, :]
+    d0_p = _disp(lab0, xs, ys)
+    d1_p = _disp(lab1, xs, ys)
+    t0 = torch.zeros_like(d0_p)
+    t1 = torch.zeros_like(d0_p)
+    for k, (dx, dy) in enumerate(NEIGHBORS):
+        outside = ((ix + dx < 0) | (ix + dx >= s) | (iy + dy < 0)
+                   | (iy + dy >= s))
+        lab_q = _at(labels0_halo, s, dx, dy)
+        xq, yq = xs + dx, ys + dy
+        dq_p = _disp(lab_q, xs, ys)
+        dq_q = _disp(lab_q, xq, yq)
+        d0_q = _disp(lab0, xq, yq)
+        d1_q = _disp(lab1, xq, yq)
+        w = torch.where(outside, coeff_all[:, k], 0.0) * lambda_
+        t0 = t0 + torch.clamp(torch.abs(d0_p - dq_p)
+                              + torch.abs(d0_q - dq_q), max=tau) * w
+        t1 = t1 + torch.clamp(torch.abs(d1_p - dq_p)
+                              + torch.abs(d1_q - dq_q), max=tau) * w
     return t0, t1

@@ -6,8 +6,9 @@ random planes, and a cost volume with a linear basin around the truth plus
 noise. At scale 1.0 it is 1436 x 992 with 145 disparities, half the
 Middlebury V3 full resolution.
 
-:func:`fused_move_problem` makes random inputs of one fused expansion move,
-for holding the kernel against its plain version.
+:func:`fused_move_problem` and :func:`fusion_move_problem` make random
+inputs of one fused expansion move and of one fusion move, for holding the
+kernels against their plain versions.
 """
 from __future__ import annotations
 
@@ -60,6 +61,40 @@ def fused_move_problem(rng: np.random.Generator, n: int, s: int,
     tox = rng.integers(-3, 10, n).astype(np.float32)
     toy = rng.integers(-3, 10, n).astype(np.float32)
     return [halo, props, tox, toy, coeff8, ccost, pcost], lam, tau
+
+
+def fusion_move_problem(rng: np.random.Generator, n: int, s: int,
+                        lam: float = 0.5, tau: float = 1.0):
+    """Inputs of one fusion move over ``n`` regions of ``s`` x ``s``
+    pixels: two labelings near a planted plane per region (each pixel's
+    disparity offset by independent noise, more of it in one labeling than
+    the other in random halves of the window), unaries that grow with the
+    offset, and random pairwise weights. Returns ([halo0, halo1, tox, toy,
+    coeff8, ccost, pcost] as float32 numpy arrays, lam, tau); the halos
+    are [n, s+2, s+2, 4]."""
+    hs = s + 2
+    tox = rng.integers(0, 400, n).astype(np.float32)
+    toy = rng.integers(0, 400, n).astype(np.float32)
+    a = rng.uniform(-0.05, 0.05, n)[:, None, None]
+    b = rng.uniform(-0.05, 0.05, n)[:, None, None]
+    c = rng.uniform(10, 100, n)[:, None, None]
+    ys, xs = np.mgrid[0:hs, 0:hs].astype(np.float64)
+    gx = tox[:, None, None] - 1.0 + xs
+    gy = toy[:, None, None] - 1.0 + ys
+    truth = a * gx + b * gy + c
+    left = xs[None] < rng.integers(1, hs, n)[:, None, None]
+    halos, costs = [], []
+    for scale in ((0.2, 1.5), (1.5, 0.2)):
+        off = rng.normal(0.0, 1.0, (n, hs, hs)) * np.where(left, *scale)
+        lab = np.zeros((n, hs, hs, 4), np.float32)
+        lab[..., 0] = a + rng.normal(0.0, 0.005, (n, hs, hs))
+        lab[..., 1] = b + rng.normal(0.0, 0.005, (n, hs, hs))
+        lab[..., 2] = (truth + off - lab[..., 0] * gx - lab[..., 1] * gy)
+        halos.append(lab)
+        costs.append((np.minimum(np.abs(off[:, 1:-1, 1:-1]), 3.0) * 0.3
+                      + rng.uniform(0.0, 0.1, (n, s, s))).astype(np.float32))
+    coeff8 = rng.uniform(0.01, 1.0, (n, 8, s, s)).astype(np.float32)
+    return [halos[0], halos[1], tox, toy, coeff8, costs[0], costs[1]], lam, tau
 
 
 def unary_window_problem(rng: np.random.Generator, n: int, f: int, d: int,

@@ -155,6 +155,8 @@ def test_flags_and_spellings():
     assert (opt.filter_radius, opt.resolve_smooth_weight(),
             opt.unary_backend, opt.device) == (8, 0.5, "dma", "cuda")
     assert tcli.v3_layers(1436) == [14, 43, 129] == jcli.v3_layers(1436)
+    assert tcli.parse_args(["-mode", "MiddV3", "-fuseSeeds", "3"]
+                           ).fuse_seeds == 3
     for d in ("x/trainingQ/a", "x/trainingF/a", "x/trainingH/a"):
         assert tcli.v3_error_threshold(d) == jcli.v3_error_threshold(d)
 
@@ -162,7 +164,7 @@ def test_flags_and_spellings():
 @pytest.mark.parametrize("flags,item", [
     (["-mode", "MiddV2"], "A11"),
     (["-doDual", "1"], "A10"),
-    (["-fuseSeeds", "3"], "A12"),
+    (["-fuseSeeds", "3", "-doDual", "1"], "A10"),
     (["-volume", "mccnn"], "A13"),
     (["-volPrecision", "bfloat16"], "bfloat16"),
     (["-laneFriendly", "1"], "laneFriendly"),

@@ -54,6 +54,27 @@ def test_expansion_kernel_matches_plain(cuda, n, s, rounds, sweeps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,s,rounds,sweeps", [
+    (16, 12, 64, 16), (3, 40, 64, 16), (5, 9, 2, 3),   # last: truncated solve
+])
+def test_mincut_kernel_matches_plain(cuda, n, s, rounds, sweeps):
+    """The min-cut of prebuilt (fusion) graphs: equal accept masks."""
+    arrays, lam, tau = synthetic.fusion_move_problem(
+        np.random.default_rng(n), n, s)
+    terms = mincut_cuda.fusion_terms(
+        *[torch.as_tensor(a, device=cuda) for a in arrays], lam, tau)
+    graph = [x.contiguous() for x in mincut.build_fusion_graph(*terms)]
+    before = mincut_cuda.solve_graph.launches
+    got = mincut_cuda.solve_graph(*graph, max_global_rounds=rounds,
+                                  sweeps_per_round=sweeps)
+    torch.cuda.synchronize()
+    assert mincut_cuda.solve_graph.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (n, s, s)
+    want = mincut.solve_preflow(*graph, rounds, sweeps)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "uint8"])
 @pytest.mark.parametrize("n,f,d,r", [
     (5, 7, 6, 0), (17, 9, 12, 0), (9, 11, 6, 3), (20, 62, 24, 10),

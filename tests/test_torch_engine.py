@@ -99,11 +99,12 @@ def solves():
 
     ts = teng.LocalExpansionSolver(im, im, T_PARAMS.replace(**params),
                                    max_disp=float(ND - 1), vol0=vol,
-                                   vol1=vol, seed=0)
+                                   vol1=vol, seed=0, device="cpu")
     for i, s in enumerate(LAYERS):
         ts.add_layer(s, teng.LAYER0_PROPOSERS if i == 0
                      else teng.COARSE_PROPOSERS)
-    ts.data, ts.cfg = tenergy.energy_from_numpy(js.data, js.cfg)
+    ts.data, ts.cfg = tenergy.energy_from_numpy(js.data, js.cfg,
+                                                device="cpu")
     assert all(teng.mincut_knobs(3 * s) == (16, 16) for s in LAYERS)
     trec = _Recorder(teng.energy_audit)
     ts.set_evaluator(trec)
@@ -145,7 +146,8 @@ def test_gc_sweep_from_shared_state(solves):
     """One graph-cut sweep of the port from the JAX engine's post-greedy
     state, with the JAX run's key, lands on the JAX energy."""
     ts = solves["ts"]
-    state = tenergy.state_from_numpy(*solves["jrec"].states[PM])
+    state = tenergy.state_from_numpy(*solves["jrec"].states[PM],
+                                     device="cpu")
     key = rng.fold_in(rng.PRNGKey(0), 3000 + PM)
     ts._sweep(state, 0, 0, True, key)
     e = float(teng.energy_audit(ts.data, ts.cfg, *state, 0)[0])
@@ -180,9 +182,11 @@ def dma_solves():
 
     ts = teng.LocalExpansionSolver(im, im, T_PARAMS.replace(**params),
                                    max_disp=float(DMA_ND - 1), vol0=vol,
-                                   vol1=vol, seed=0, unary_backend="dma")
+                                   vol1=vol, seed=0, unary_backend="dma",
+                                   device="cpu")
     ts.add_layer(DMA_LAYER, DMA_PROPOSERS)
-    ts.data, ts.cfg = tenergy.energy_from_numpy(js.data, js.cfg)
+    ts.data, ts.cfg = tenergy.energy_from_numpy(js.data, js.cfg,
+                                                device="cpu")
     trec = _Recorder(teng.energy_audit)
     ts.set_evaluator(trec)
     tlab = ts.run(iterations=1, pm_iterations=1)
@@ -231,7 +235,7 @@ def test_port_runs_without_jax(tmp_path):
         img, vol, h, w, nd, truth = synthetic.build_problem(0.03)
         s = engine.LocalExpansionSolver(
             img, img, PARAMS_GF.replace(windR=6, lambda_=0.5, th_col=0.5),
-            max_disp=float(nd - 1), vol0=vol, vol1=vol)
+            max_disp=float(nd - 1), vol0=vol, vol1=vol, device="cpu")
         s.add_layer(16, engine.COARSE_PROPOSERS)
         lab = s.run(iterations=1, pm_iterations=0)
         assert lab.shape == (h, w, 4) and bool(torch.isfinite(lab).all())
@@ -244,3 +248,26 @@ def test_port_runs_without_jax(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=tmp_path, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
+
+
+def test_solver_wants_the_card_unless_asked_for_the_cpu():
+    """With no ``device`` the solver and the energy helpers put their
+    tensors on the card, and raise on a host without one."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    im, vol, _ = _scene(16, 24, 6)
+    params = T_PARAMS.replace(windR=4, lambda_=0.5, th_col=0.5)
+    solver = teng.LocalExpansionSolver(im, im, params, max_disp=5.0,
+                                       vol0=vol, vol1=vol)
+    solver.add_layer(4, teng.COARSE_PROPOSERS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solver.run(iterations=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tenergy.build_energy(im, im, params, 5.0, 8, vol, vol)
+    data, cfg = tenergy.build_energy(im, im, params, 5.0, 8, vol, vol,
+                                     device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tenergy.energy_from_numpy(data, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tenergy.state_from_numpy(np.zeros((4, 4, 4)), np.zeros((4, 4)))

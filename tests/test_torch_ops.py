@@ -180,7 +180,7 @@ def scene():
                                    vol0=vol, vol1=vol * 0.7, vol_pad=vp,
                                    vol_dtype="uint8")
     tdata, tcfg = ten.build_energy(img0, img1, params_t, ND - 1.0, pad,
-                                   vol, vol * 0.7, vol_pad=vp)
+                                   vol, vol * 0.7, vol_pad=vp, device="cpu")
     return jdata, jcfg, tdata, tcfg
 
 
@@ -197,7 +197,7 @@ def test_build_energy_matches_jax(scene):
               "vol_scale", "vol_zero"):
         assert getattr(tcfg, f) == getattr(jcfg, f), f
     assert dataclasses.asdict(tcfg.params) == dataclasses.asdict(jcfg.params)
-    carried, ccfg = ten.energy_from_numpy(jdata, jcfg)
+    carried, ccfg = ten.energy_from_numpy(jdata, jcfg, device="cpu")
     assert ccfg == tcfg
     np.testing.assert_array_equal(carried.coeff8.numpy(),
                                   np.asarray(jdata.coeff8))
