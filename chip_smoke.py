@@ -13,12 +13,15 @@ Phases, each printing JSON lines:
             ``build/torch_kernels/``), timed;
 3. kernel:  ``expansion_accept`` (CUDA) against its plain PyTorch version on
             the card at the shapes of the main path, (S, N) = (42, 468),
-            (129, 54), (387, 6): equal accept masks, cut energies, the
-            guard, median milliseconds of both, the card's bound;
+            (129, 54), (387, 6): equal accept masks (required at every
+            shape), cut energies, the guard, median milliseconds of both,
+            the card's bound, and the launch plan (K, threads, shared
+            memory, state, the clusters that fit at once, registers);
 4. mincut_kernel: ``mincut_accept`` (CUDA; ``mincut_cuda.solve_graph``)
             against its plain version on fusion graphs at the fusion path's
             shapes, the same (S, N), 64 rounds of 16 sweeps: equal masks or
-            equal cut energies, the guard, median milliseconds, the bound;
+            equal cut energies, the guard, median milliseconds, the bound,
+            the launch plan;
 5. unary_kernel: ``sample_windows`` (CUDA) against its plain version on the
             windows of the 1436 x 992 x 145 problem, (F, N) = (62, 468),
             (149, 54), (407, 6), raw and guided-filtered (r 10): max abs
@@ -45,11 +48,12 @@ Phases, each printing JSON lines:
             counts, time.txt, the auxiliary solve's, the warm-start unary's
             and each layer's fusion seconds;
 10. profile: the init + one greedy sweep on each unary route, unprofiled
-            in turns (2 each) and under torch.profiler, and one graph-cut
-            sweep under torch.profiler: wall seconds, and for the profiled
-            windows device-busy seconds, the idle share and the largest
-            device ops, the expansion kernel's seconds per move-window size
-            (CUDA events), and peak device memory.
+            in turns (2 each), then the ``dma`` route's under
+            torch.profiler, and one graph-cut sweep under torch.profiler:
+            wall seconds, and for the profiled windows device-busy seconds,
+            the idle share and the largest device ops, the expansion
+            kernel's seconds per move-window size (CUDA events), and the
+            graph-cut sweep's peak device memory.
 
 Then a ``{"kernels": [...]}`` line (launches from the ``fuse`` run), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
@@ -202,6 +206,7 @@ def phase_kernel(torch):
             torch, lambda: mincut_cuda.expansion_accept_reference(*args, **kw),
             3)
         row = {"S": s, "N": n, "rounds": ROUNDS, "sweeps": sweeps,
+               "plan": mincut_cuda.describe("expansion_accept", s, n),
                "regions_equal": float((got == want).all(-1).all(-1)
                                       .float().mean()),
                "max_abs_err": float(err.max()),
@@ -213,7 +218,7 @@ def phase_kernel(torch):
                "plain_bfs_passes": int(stats["bfs_passes"].sum()),
                "plain_sweeps": int(stats["sweeps"].sum())}
         emit({"phase": "kernel", **row})
-        if not (energy_ok and guard_ok):
+        if not (energy_ok and guard_ok and row["regions_equal"] == 1.0):
             raise AssertionError(f"kernel disagrees at S={s}: {row}")
         rows.append(row)
     return rows
@@ -248,6 +253,7 @@ def phase_mincut_kernel(torch):
         bound_ms, bound_by = bound(nbytes, solve_ops(stats, s))
         row = {"S": s, "N": n, "rounds": FUSION_ROUNDS,
                "sweeps": FUSION_SWEEPS,
+               "plan": mincut_cuda.describe("mincut_accept", s, n),
                "regions_equal": float(same.float().mean()),
                "max_abs_err": float(err.max()), "ok": ok,
                "accepted": float(got.float().mean()),
@@ -596,10 +602,11 @@ def greedy_walls(torch, solvers, order):
 
 def phase_profile(torch):
     """The init + one greedy sweep of the slice on each unary route,
-    unprofiled in turns (auto, dma, dma, auto) and then under
+    unprofiled in turns (auto, dma, dma, auto), then the "dma" route's under
     torch.profiler; then one graph-cut sweep on the "auto" route (the 1 + 1
     run's trajectory, in a warm process) under torch.profiler, the
-    graph-cut kernel timed per call with CUDA events."""
+    graph-cut kernel timed per call with CUDA events. Parsing a profiled
+    window's trace takes minutes, so there are two."""
     from localexpstereo_tpu_torch.models import engine
     from localexpstereo_tpu_torch.ops import mincut_cuda, rng
     solvers = {}
@@ -614,8 +621,6 @@ def phase_profile(torch):
     del solvers
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    greedy = profiled(torch, lambda: solver.run(iterations=0,
-                                                pm_iterations=1))
     timed = TimedKernels(torch, mincut_cuda)
     engine.mincut_cuda = timed
     try:
@@ -627,7 +632,7 @@ def phase_profile(torch):
     gc["kernel_by_shape"] = timed.by_shape()
     gc["kernel_s"] = sum(r["kernel_s"] for r in gc["kernel_by_shape"])
     emit({"phase": "profile", "layers": sizes, "greedy_wall_s": walls,
-          "greedy_dma": greedy_dma, "greedy": greedy, "gc": gc,
+          "greedy_dma": greedy_dma, "gc": gc,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
 

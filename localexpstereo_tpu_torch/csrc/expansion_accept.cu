@@ -1,6 +1,7 @@
 // Fused expansion move for Hopper (sm_90a): pairwise tables, boundary
 // t-links, submodular graph build, push-relabel min-cut and the exact
-// per-region energy guard, one thread block per region.
+// per-region energy guard, one thread block or one thread-block cluster
+// per region.
 //
 // Replaces localexpstereo_tpu/ops/mincut_pallas.py::expansion_accept_pallas
 // (both its [b, S, S] kernel, _make_expansion_kernel, and its
@@ -8,22 +9,29 @@
 // fill the TPU's 128 vector lanes). The plain PyTorch version of the same
 // semantics is ops/mincut_cuda.py::expansion_accept_reference.
 //
-// Design: grid = N regions, 1024 threads per block, block-stride loops over
-// the S*S pixels of the region. All per-region planes live in a global
-// workspace [N, kPlanes, S, S] allocated by the wrapper: at S = 387 one
-// plane is 599 KB, more than the 227 KB of shared memory a block may use.
-// Phases are separated by __syncthreads(). The min-cut solve is the shared
-// push-relabel core of push_relabel.cuh (Jacobi semantics of
-// mincut_pallas._solver_core). Built with --fmad=false so every table
-// entry, excess sum and guard term rounds like the plain version.
+// Design: the launch plan (ops/mincut_cuda.py::launch_plan) gives each
+// region K blocks in row bands and says where the solve state lives, and
+// the kernel is instantiated once per state layout (push_relabel.cuh): at
+// S = 42 one block of 512 threads per region with the whole solve state in
+// shared memory, two regions an SM; at S = 129 and 387 a cluster of 2 and
+// 16 blocks of 1024 threads, each block holding its band's hot planes in
+// shared memory and reading the neighbouring rows through distributed
+// shared memory. The tables (c00, c01, c10: 12 planes) and the unaries t0,
+// t1 stay in a global workspace: they are written once and read by the
+// graph build (which reads row y - 1) and the guard. Phases are separated
+// by cluster barriers. The guard sums each block's part, then the blocks'
+// parts by rank, so that `ok` is the same in every run. Built with
+// --fmad=false so every table entry, excess sum and guard term rounds like
+// the plain version.
 //
-// What bounds it on an H100: the solve is a chain of block-wide barriers
-// over state that sits in L2/global memory; the work per barrier is a few
-// loads per pixel. At S = 387 the 6 regions of a color run as 6 blocks on
-// 132 SMs, so the card is mostly idle; at S = 42 the 468 regions give
-// enough blocks to fill it. Keeping a region's state in shared memory at
-// S = 42 (about 25 planes of 7 KB) and splitting an S = 387 region over a
-// thread-block cluster are later work.
+// What bounds it on an H100: not bytes (about 15 us a call at the main
+// path's shapes) nor float operations (about 0.08 ms at S = 387), but the
+// solve's chain of phases: some 200 cluster barriers a call at S = 387,
+// each phase about 10 pixels a thread of integer address work, shared-
+// memory loads and, for active pixels, capacity loads from L2. One block
+// per region left 126 of 132 SMs idle at S = 387; the cluster puts 96 SMs
+// on a color, and the interior rows of a band, which read no other block,
+// compile to plain shared-memory loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,46 +40,35 @@
 
 namespace {
 
-// Workspace planes per region (ops/mincut_cuda.py: WORK_PLANES).
+// Table slots of a region's global workspace (ops/mincut_cuda.py:
+// TABLE_PLANES), followed by the state's slots (state_slots).
 constexpr int kC00 = 0;     // 4 planes: pairwise table, both keep
 constexpr int kC01 = 4;     // 4 planes: q switches
 constexpr int kC10 = 8;     // 4 planes: p switches
 constexpr int kT0 = 12;     // keep cost (unary + boundary t-links)
 constexpr int kT1 = 13;     // switch cost
-constexpr int kE = 14;      // excess
-constexpr int kCapT = 15;   // residual sink capacity
-constexpr int kH = 16;      // heights (two buffers)
-constexpr int kH2 = 17;
-constexpr int kCapFw = 18;  // 4 planes: residual forward capacities
-constexpr int kFw0 = 22;    // 4 planes: initial forward capacities
-constexpr int kAmt = 26;    // pushed amount
-constexpr int kDir = 27;    // push direction code (int)
-constexpr int kAcc = 28;    // unguarded accept mask (0/1)
-constexpr int kPlanes = 29;
+constexpr int kTables = 14;
 
-__global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
+template <int kState>
+__global__ void __launch_bounds__(kMaxThreads) expansion_accept_kernel(
     const float* __restrict__ halo, const float* __restrict__ props,
     const float* __restrict__ tox, const float* __restrict__ toy,
     const float* __restrict__ coeff8, const float* __restrict__ ccost,
     const float* __restrict__ pcost, uint8_t* __restrict__ accept,
-    float* __restrict__ work, int s, float lam, float tau, int max_rounds,
-    int sweeps) {
-  const int n = blockIdx.x;
-  Region r;
-  r.s = s;
-  r.ss = s * s;
-  r.hmax = (float)(s * s + 2);
-  float* const w = work + (size_t)n * kPlanes * r.ss;
-  auto plane = [&](int k) { return w + (size_t)k * r.ss; };
-  r.e = plane(kE);
-  r.capt = plane(kCapT);
-  r.capfw = plane(kCapFw);
-  r.fw0 = plane(kFw0);
-  r.amt = plane(kAmt);
-  r.dir = reinterpret_cast<int*>(plane(kDir));
+    float* work, int s, float lam, float tau, int max_rounds, int sweeps,
+    int cluster, int band_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = blockIdx.x / cluster;
+  Team t = make_team(blockIdx.x % cluster, cluster);
+  const int ss = s * s;
+  float* const w =
+      work + (size_t)n * (kTables + state_slots(kState)) * ss;
+  auto plane = [&](int k) { return w + (size_t)k * ss; };
+  const Region<kState> r =
+      make_region<kState>(t, s, band_rows, plane(kTables), smem);
   const int hs = s + 2;
   const float* hal = halo + (size_t)n * hs * hs * 4;
-  const float* cf = coeff8 + (size_t)n * 8 * r.ss;
+  const float* cf = coeff8 + (size_t)n * 8 * ss;
   const float pa = props[n * 4 + 0], pb = props[n * 4 + 1],
               pc = props[n * 4 + 2];
   const float hx0 = tox[n] - 1.0f, hy0 = toy[n] - 1.0f;  // halo origin
@@ -91,8 +88,10 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
   };
 
   // ---- pairwise tables and boundary t-links (mincut_pallas.py:239-278) --
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
-    const int x = p % s, y = p / s, cx = x + 1, cy = y + 1;
+  for (int p = r.p0 + threadIdx.x; p < r.p1; p += blockDim.x) {
+    int x, y;
+    r.xy(p, &x, &y);
+    const int cx = x + 1, cy = y + 1;
     const float d0 = d0h(cx, cy), d1 = d1h(cx, cy);
     const float a0 = slope_a(cx, cy), b0 = slope_b(cx, cy);
     for (int i = 0; i < 4; ++i) {
@@ -103,7 +102,7 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
       const float d_le_ee = d0q - (slope_a(qx, qy) * dx + slope_b(qx, qy) * dy);
       const float d_ee_le = d0 + a0 * dx + b0 * dy;
       const float d1q = d1h(qx, qy);
-      const float w = cf[(size_t)k * r.ss + p] * lam;
+      const float w = cf[(size_t)k * ss + p] * lam;
       plane(kC00 + i)[p] =
           fminf(fabsf(d0 - d_le_ee) + fabsf(d_ee_le - d0q), tau) * w;
       plane(kC01 + i)[p] =
@@ -120,19 +119,20 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
       const float dq_p = d0q - (slope_a(qx, qy) * dx + slope_b(qx, qy) * dy);
       const float d0_q = d0 + a0 * dx + b0 * dy;
       const float d1_q = d1h(qx, qy);
-      const float w = (outside ? cf[(size_t)k * r.ss + p] : 0.0f) * lam;
+      const float w = (outside ? cf[(size_t)k * ss + p] : 0.0f) * lam;
       t0b += fminf(fabsf(d0 - dq_p) + fabsf(d0_q - d0q), tau) * w;
       t1b += fminf(fabsf(d1 - dq_p) + fabsf(d1_q - d0q), tau) * w;
     }
-    const size_t g = (size_t)n * r.ss + p;
+    const size_t g = (size_t)n * ss + p;
     plane(kT0)[p] = ccost[g] + t0b;
     plane(kT1)[p] = pcost[g] + t1b;
   }
-  __syncthreads();
+  t.sync();
 
   // ---- submodular graph build (mincut_pallas.py:280-293) -----------------
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
-    const int x = p % s, y = p / s;
+  for (int p = r.p0 + threadIdx.x; p < r.p1; p += blockDim.x) {
+    int x, y;
+    r.xy(p, &x, &y);
     float sigma = plane(kT0)[p];
     for (int i = 0; i < 4; ++i) {
       const int dx = kNbDx[kFwd[i]], dy = kNbDy[kFwd[i]];
@@ -146,33 +146,33 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
       }
       sigma = sigma + c01 * em + d_minus_c;
       const float fw = fmaxf(0.0f, c10 + c01 - c00) * em;
-      plane(kFw0 + i)[p] = fw;
-      plane(kCapFw + i)[p] = fw;
+      r.fw0(i)[p] = fw;
+      r.capfw(i)[p] = fw;
     }
     const float nu = sigma - plane(kT1)[p];
-    plane(kE)[p] = fmaxf(nu, 0.0f);
-    plane(kCapT)[p] = fmaxf(-nu, 0.0f);
+    r.e()[p] = fmaxf(nu, 0.0f);
+    r.capt()[p] = fmaxf(-nu, 0.0f);
   }
-  __syncthreads();
+  t.sync();
 
   // ---- push-relabel solve (mincut_pallas.py:139-174) ---------------------
-  const float* h = push_relabel(r, plane(kH), plane(kH2), max_rounds, sweeps);
-  float* acc = plane(kAcc);
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x)
-    acc[p] = h[p] >= r.hmax ? 1.0f : 0.0f;
-  __syncthreads();
+  const float* h = r.plane(push_relabel(r, t, max_rounds, sweeps));
+  auto accepted = [&](int q) {
+    return *r.at(Edge{}, h, q) >= r.hmax ? 1.0f : 0.0f;
+  };
 
   // ---- exact per-region energy-delta guard (mincut_pallas.py:297-312) ----
   float part = 0.0f;
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x) {
-    const int x = p % s, y = p / s;
-    const float xm = acc[p];
+  for (int p = r.p0 + threadIdx.x; p < r.p1; p += blockDim.x) {
+    int x, y;
+    r.xy(p, &x, &y);
+    const float xm = accepted(p);
     float contrib = (plane(kT1)[p] - plane(kT0)[p]) * xm;
     for (int i = 0; i < 4; ++i) {
       const int dx = kNbDx[kFwd[i]], dy = kNbDy[kFwd[i]];
       const bool in = r.inside(x + dx, y + dy);
       const float em = in ? 1.0f : 0.0f;
-      const float xq = in ? acc[p + dy * s + dx] : 0.0f;
+      const float xq = in ? accepted(p + dy * s + dx) : 0.0f;
       const float c00 = plane(kC00 + i)[p];
       const float pair = c00 * (1.0f - xm) * (1.0f - xq)
           + plane(kC01 + i)[p] * (1.0f - xm) * xq
@@ -181,10 +181,22 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
     }
     part += contrib;
   }
-  const bool ok = block_sum(part) <= 0.0f;
-  uint8_t* out = accept + (size_t)n * r.ss;
-  for (int p = threadIdx.x; p < r.ss; p += blockDim.x)
-    out[p] = (ok && acc[p] > 0.5f) ? 1 : 0;
+  const bool ok = t.sum(part) <= 0.0f;
+  uint8_t* out = accept + (size_t)n * ss;
+  for (int p = r.p0 + threadIdx.x; p < r.p1; p += blockDim.x)
+    out[p] = (ok && accepted(p) > 0.5f) ? 1 : 0;
+  t.sync();  // no block leaves while another reads its shared memory
+}
+
+// The kernel of a state layout (push_relabel.cuh: kState*).
+template <typename F>
+cudaError_t with_kernel(int state, F f) {
+  switch (state) {
+    case kStateGlobal: return f(expansion_accept_kernel<kStateGlobal>);
+    case kStateBanded: return f(expansion_accept_kernel<kStateBanded>);
+    case kStateShared: return f(expansion_accept_kernel<kStateShared>);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -192,14 +204,28 @@ __global__ void __launch_bounds__(kThreads) expansion_accept_kernel(
 extern "C" int expansion_accept_launch(
     const void* halo, const void* props, const void* tox, const void* toy,
     const void* coeff8, const void* ccost, const void* pcost, void* accept,
-    void* work, int n, int s, float lam, float tau, int max_rounds,
-    int sweeps, void* stream) {
-  if (n > 0) {
-    expansion_accept_kernel<<<n, kThreads, 0, (cudaStream_t)stream>>>(
+    void* work, int n, int s, float lam, float tau,
+    int max_rounds, int sweeps, int cluster, int threads, int smem,
+    int state, int band_rows, void* stream) {
+  if (n <= 0) return 0;
+  return (int)with_kernel(state, [&](auto kernel) {
+    return launch_regions(
+        kernel, n, cluster, threads, smem, (cudaStream_t)stream,
         (const float*)halo, (const float*)props, (const float*)tox,
         (const float*)toy, (const float*)coeff8, (const float*)ccost,
         (const float*)pcost, (uint8_t*)accept, (float*)work, s, lam, tau,
-        max_rounds, sweeps);
-  }
-  return (int)cudaGetLastError();
+        max_rounds, sweeps, cluster, band_rows);
+  });
+}
+
+extern "C" int expansion_accept_configure(int state) {
+  return (int)with_kernel(state, [](auto kernel) { return configure(kernel); });
+}
+
+extern "C" int expansion_accept_occupancy(int cluster, int threads,
+                                          int smem, int state, int* active,
+                                          int* regs) {
+  return (int)with_kernel(state, [&](auto kernel) {
+    return occupancy(kernel, cluster, threads, smem, active, regs);
+  });
 }

@@ -19,21 +19,191 @@ the package's sources at first use, or raises; on a CPU tensor, the same
 semantics in plain PyTorch. The libraries are built and loaded by
 :mod:`.cuda_build` (``nvcc`` into ``build/torch_kernels/``, plain
 ``extern "C"`` launchers loaded with ``ctypes``).
+
+Both kernels launch by one :func:`launch_plan`: a region is solved by one
+block, with its whole solve state in shared memory while it fits, or by a
+thread-block cluster of K blocks in row bands, each holding its band's hot
+planes in shared memory (``csrc/push_relabel.cuh``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
+from typing import Callable, Optional
 
 import torch
 
 from . import cuda_build, mincut, pairwise
 
-#: float32 planes of the kernels' per-region workspaces (see the .cu files).
-WORK_PLANES = 29
-MINCUT_WORK_PLANES = 10
 #: Round structure of the fusion move's solve: the JAX package's
 #: ``mincut.fusion_accept`` defaults, at every window size.
 FUSION_ROUNDS, FUSION_SWEEPS = 64, 16
+
+# ------------------------------------------------------------ launch plan --
+# The H100's limits and the kernels' state (csrc/push_relabel.cuh).
+
+#: Streaming multiprocessors of an H100 SXM.
+SMS = 132
+#: Shared memory one block may use (dynamic and static), and the static
+#: shared memory the kernels declare themselves (votes, sums), rounded up.
+SMEM_PER_BLOCK, SMEM_STATIC = 232_448, 1024
+#: Cluster sizes tried, largest first; above 8 is a non-portable size.
+CLUSTER_SIZES = (16, 8, 4, 2)
+#: Where the solve state lives, by the kernels' code (kState*).
+STATES = {"global": 0, "banded": 1, "shared": 2}
+#: Bytes a pixel of state takes in shared memory: all 13 float planes and
+#: the 2 int8 planes ("shared"), or the 5 hot float planes and the 2 int8
+#: planes ("banded").
+SHARED_PX_BYTES, BANDED_PX_BYTES = 13 * 4 + 2, 5 * 4 + 2
+#: Global workspace slots (S*S float32) a region's state takes, by state
+#: (the two int8 planes share one slot).
+STATE_SLOTS = {"global": 14, "banded": 8, "shared": 0}
+#: The expansion kernel's table slots (c00, c01, c10: 4 each; t0; t1).
+TABLE_PLANES = 14
+#: Threads per block: one region on a block, or a block of a cluster.
+BLOCK_THREADS, CLUSTER_THREADS = 512, 1024
+#: Windows at least this wide are refused: the kernels find a pixel's row
+#: with a float reciprocal, exact only below it (push_relabel.cuh: xy).
+MAX_S = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How the graph-cut kernels lay N regions of S x S pixels on the card:
+    ``cluster`` blocks per region (K), ``threads`` per block, ``smem_bytes``
+    of dynamic shared memory per block, ``state`` ("shared", "banded" or
+    "global", see :data:`STATES`) and ``band_rows``, the rows a block owns
+    (block r owns ``[r * band_rows, (r + 1) * band_rows)``, cut at S)."""
+
+    cluster: int
+    threads: int
+    smem_bytes: int
+    state: str
+    band_rows: int
+
+    def bands(self, s: int):
+        """Each block's rows, as (first, end) pairs; empty bands included."""
+        return [(min(r * self.band_rows, s), min((r + 1) * self.band_rows, s))
+                for r in range(self.cluster)]
+
+    def work_slots(self, tables: int = 0) -> int:
+        """Global workspace slots a region takes, after ``tables`` slots."""
+        return tables + STATE_SLOTS[self.state]
+
+
+def static_active(plan: Plan) -> int:
+    """Regions of a plan the card runs at once, estimated without it: one
+    block an SM, or two where both fit. The kernels' wrappers ask the card
+    instead (:func:`card_plan`)."""
+    per_sm = 2 if (plan.threads <= BLOCK_THREADS and 2 * (
+        plan.smem_bytes + SMEM_STATIC) <= SMEM_PER_BLOCK) else 1
+    return SMS * per_sm // plan.cluster
+
+
+def launch_plan(s: int, n: int,
+                active: Optional[Callable[[Plan], int]] = None) -> Plan:
+    """The launch plan of N regions of S x S pixels.
+
+    - K = 1 while the region's whole solve state fits one block's shared
+      memory (S <= 65): one block of up to 512 threads per region, two
+      regions an SM where both fit (S = 42: 95,256 bytes each).
+    - Otherwise a cluster of K blocks in row bands, K the largest of
+      :data:`CLUSTER_SIZES` for which ``active(plan)`` (how many such
+      clusters the card runs at once) reaches N, so that the N regions run
+      in one wave; K = 2 if none does. Each block holds its band's hot
+      planes in shared memory if they fit ("banded"), else all state lives
+      in the global workspace ("global").
+
+    ``active`` defaults to :func:`static_active`. Raises for S >=
+    :data:`MAX_S`.
+    """
+    if not 0 < s < MAX_S:
+        raise ValueError(f"launch_plan: window size {s} is outside "
+                         f"1..{MAX_S - 1}")
+    active = active or static_active
+    ss = s * s
+    if ss * SHARED_PX_BYTES <= SMEM_PER_BLOCK - SMEM_STATIC:
+        threads = min(BLOCK_THREADS, 32 * math.ceil(ss / 32))
+        return Plan(1, threads, ss * SHARED_PX_BYTES, "shared", s)
+    for k in CLUSTER_SIZES:
+        plan = cluster_plan(s, k)
+        if active(plan) >= n:
+            return plan
+    return cluster_plan(s, CLUSTER_SIZES[-1])
+
+
+def cluster_plan(s: int, k: int, state: Optional[str] = None) -> Plan:
+    """A region of S x S pixels on a cluster of K blocks in row bands:
+    "banded" if a band's hot planes fit a block's shared memory, else
+    "global" (or the ``state`` given)."""
+    rows = math.ceil(s / k)
+    smem = rows * s * BANDED_PX_BYTES
+    if state is None:
+        state = ("banded" if smem <= SMEM_PER_BLOCK - SMEM_STATIC
+                 else "global")
+    return Plan(k, CLUSTER_THREADS, smem if state == "banded" else 0, state,
+                rows)
+
+
+def _declare_plans(lib: ctypes.CDLL, kernel: str) -> None:
+    fn = getattr(lib, f"{kernel}_occupancy")
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    fn = getattr(lib, f"{kernel}_configure")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def configured(kernel: str, state: str, device: int) -> ctypes.CDLL:
+    """The library of kernel "expansion_accept" or "mincut_accept", its
+    kernel for ``state`` set up for any plan on CUDA device ``device``
+    (the most dynamic shared memory a block can take, clusters above 8),
+    once per kernel, state and device."""
+    lib = cuda_build.load(LIBRARY if kernel == "expansion_accept"
+                          else MINCUT_LIBRARY)
+    with torch.cuda.device(device):
+        rc = getattr(lib, f"{kernel}_configure")(STATES[state])
+    cuda_build.launch_error(f"{kernel} configure", rc)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(kernel: str, plan: Plan):
+    """(regions the card runs at once, registers per thread) of a plan, for
+    kernel "expansion_accept" or "mincut_accept", asked of the card
+    (``cudaOccupancyMaxActiveClusters``, or blocks per SM times SMs)."""
+    lib = configured(kernel, plan.state, torch.cuda.current_device())
+    active, regs = ctypes.c_int(0), ctypes.c_int(0)
+    rc = getattr(lib, f"{kernel}_occupancy")(
+        plan.cluster, plan.threads, plan.smem_bytes, STATES[plan.state],
+        ctypes.byref(active), ctypes.byref(regs))
+    cuda_build.launch_error(f"{kernel} occupancy", rc)
+    return active.value, regs.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_plan(kernel: str, s: int, n: int) -> Plan:
+    """:func:`launch_plan` with the card's answer for how many clusters fit,
+    asked once per (kernel, S, N): the port's cards are of one type.
+    Raises if the card cannot run even one region of the plan."""
+    plan = launch_plan(s, n, lambda p: occupancy(kernel, p)[0])
+    if occupancy(kernel, plan)[0] < 1:
+        raise RuntimeError(f"{kernel}: the card cannot run {plan}")
+    return plan
+
+
+def describe(kernel: str, s: int, n: int) -> dict:
+    """The plan at (S, N) with the card's occupancy and registers: what the
+    kernel phases of ``chip_smoke.py`` print."""
+    plan = card_plan(kernel, s, n)
+    active, regs = occupancy(kernel, plan)
+    return {"K": plan.cluster, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes, "state": plan.state,
+            "band_rows": plan.band_rows, "active_clusters": active,
+            "registers": regs}
 
 
 # ------------------------------------------------------------ plain version --
@@ -84,9 +254,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.expansion_accept_launch
     fn.argtypes = ([ctypes.c_void_p] * 9
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_float] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    _declare_plans(lib, "expansion_accept")
 
 
 LIBRARY = cuda_build.Library("expansion_accept", ("expansion_accept.cu",),
@@ -134,25 +305,45 @@ def expansion_accept(halo: torch.Tensor, props: torch.Tensor,
             sweeps_per_round=sweeps_per_round)
     if dev.type != "cuda":
         raise ValueError(f"expansion_accept: unsupported device {dev}")
-    accept = torch.empty((n, s, s), dtype=torch.bool, device=dev)
     if n == 0:
-        return accept
-    work = torch.empty((n, WORK_PLANES, s, s), dtype=torch.float32,
-                       device=dev)
+        return torch.empty((n, s, s), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = cuda_build.load(LIBRARY).expansion_accept_launch(
-            halo.data_ptr(), props.data_ptr(), tox.data_ptr(),
-            toy.data_ptr(), coeff8.data_ptr(), ccost.data_ptr(),
-            pcost.data_ptr(), accept.data_ptr(), work.data_ptr(), n, s,
-            float(lam), float(tau), int(max_global_rounds),
-            int(sweeps_per_round or 16), stream)
+        plan = card_plan("expansion_accept", s, n)
+        return launch_expansion(
+            halo, props, tox, toy, coeff8, ccost, pcost, lam=lam, tau=tau,
+            max_global_rounds=max_global_rounds,
+            sweeps_per_round=sweeps_per_round, plan=plan)
+
+
+def launch_expansion(halo, props, tox, toy, coeff8, ccost, pcost, *,
+                     lam: float, tau: float, max_global_rounds: int,
+                     sweeps_per_round: int, plan: Plan) -> torch.Tensor:
+    """Launches the expansion kernel with a given plan on checked CUDA
+    tensors on the current device (:func:`expansion_accept` passes the
+    card's plan; the card tests also force others)."""
+    n, s = halo.shape[0], halo.shape[1] - 2
+    accept = torch.empty((n, s, s), dtype=torch.bool, device=halo.device)
+    work = torch.empty((n, plan.work_slots(TABLE_PLANES), s, s),
+                       dtype=torch.float32, device=halo.device)
+    lib = configured("expansion_accept", plan.state, halo.device.index)
+    rc = lib.expansion_accept_launch(
+        halo.data_ptr(), props.data_ptr(), tox.data_ptr(), toy.data_ptr(),
+        coeff8.data_ptr(), ccost.data_ptr(), pcost.data_ptr(),
+        accept.data_ptr(), work.data_ptr(), n, s, float(lam), float(tau),
+        int(max_global_rounds), int(sweeps_per_round or 16), *_plan_args(plan),
+        torch.cuda.current_stream().cuda_stream)
     cuda_build.launch_error("expansion_accept", rc)
     expansion_accept.launches += 1
     return accept
 
 
-#: Number of kernel launches (incremented only where the kernel launches).
+def _plan_args(plan: Plan):
+    return (plan.cluster, plan.threads, plan.smem_bytes, STATES[plan.state],
+            plan.band_rows)
+
+
+#: Number of kernel launches, counted where the kernel launches
+#: (:func:`launch_expansion`).
 expansion_accept.launches = 0
 
 
@@ -160,10 +351,10 @@ expansion_accept.launches = 0
 
 def _declare_mincut(lib: ctypes.CDLL) -> None:
     fn = lib.mincut_accept_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    _declare_plans(lib, "mincut_accept")
 
 
 MINCUT_LIBRARY = cuda_build.Library("mincut_accept", ("mincut_accept.cu",),
@@ -196,23 +387,37 @@ def solve_graph(e: torch.Tensor, cap_t: torch.Tensor, cap_fw: torch.Tensor,
                                     sweeps)
     if dev.type != "cuda":
         raise ValueError(f"solve_graph: unsupported device {dev}")
-    accept = torch.empty((n, s, s), dtype=torch.bool, device=dev)
     if n == 0:
-        return accept
-    work = torch.empty((n, MINCUT_WORK_PLANES, s, s), dtype=torch.float32,
-                       device=dev)
+        return torch.empty((n, s, s), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = cuda_build.load(MINCUT_LIBRARY).mincut_accept_launch(
-            e.data_ptr(), cap_t.data_ptr(), cap_fw.data_ptr(),
-            accept.data_ptr(), work.data_ptr(), n, s,
-            int(max_global_rounds), sweeps, stream)
+        return launch_mincut(e, cap_t, cap_fw,
+                             max_global_rounds=max_global_rounds,
+                             sweeps_per_round=sweeps,
+                             plan=card_plan("mincut_accept", s, n))
+
+
+def launch_mincut(e, cap_t, cap_fw, *, max_global_rounds: int,
+                  sweeps_per_round: int, plan: Plan) -> torch.Tensor:
+    """Launches the min-cut kernel with a given plan on checked CUDA
+    tensors on the current device (:func:`solve_graph` passes the card's
+    plan; the card tests also force others)."""
+    n, s = e.shape[0], e.shape[-1]
+    accept = torch.empty((n, s, s), dtype=torch.bool, device=e.device)
+    work = torch.empty((n, plan.work_slots(), s, s), dtype=torch.float32,
+                       device=e.device)
+    lib = configured("mincut_accept", plan.state, e.device.index)
+    rc = lib.mincut_accept_launch(
+        e.data_ptr(), cap_t.data_ptr(), cap_fw.data_ptr(), accept.data_ptr(),
+        work.data_ptr(), n, s, int(max_global_rounds),
+        int(sweeps_per_round or 16), *_plan_args(plan),
+        torch.cuda.current_stream().cuda_stream)
     cuda_build.launch_error("mincut_accept", rc)
     solve_graph.launches += 1
     return accept
 
 
-#: Number of kernel launches (incremented only where the kernel launches).
+#: Number of kernel launches, counted where the kernel launches
+#: (:func:`launch_mincut`).
 solve_graph.launches = 0
 
 

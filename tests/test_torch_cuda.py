@@ -29,14 +29,43 @@ def cuda():
     return torch.device("cuda")
 
 
+#: Plans forced on the kernels beside the card's own: an empty band
+#: (S < K), a short last band (S not a multiple of K), one region on a
+#: cluster, the global state on a cluster and on one block.
+FORCED_PLANS = {
+    "S<K": (3, 9, lambda s: mincut_cuda.cluster_plan(s, 16)),
+    "short-band": (2, 40, lambda s: mincut_cuda.cluster_plan(s, 16)),
+    "N=1": (1, 30, lambda s: mincut_cuda.cluster_plan(s, 4)),
+    "global-cluster": (2, 70, lambda s: mincut_cuda.cluster_plan(
+        s, 8, "global")),
+    "global-block": (4, 20, lambda s: mincut_cuda.Plan(1, 1024, 0, "global",
+                                                       s)),
+}
+
+
+def _expansion_problem(cuda, n, s):
+    arrays, lam, tau = synthetic.fused_move_problem(
+        np.random.default_rng(n), n, s)
+    return [torch.as_tensor(a, device=cuda) for a in arrays], lam, tau
+
+
+def _fusion_graph(cuda, n, s):
+    arrays, lam, tau = synthetic.fusion_move_problem(
+        np.random.default_rng(n), n, s)
+    terms = mincut_cuda.fusion_terms(
+        *[torch.as_tensor(a, device=cuda) for a in arrays], lam, tau)
+    return [x.contiguous() for x in mincut.build_fusion_graph(*terms)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,rounds,sweeps", [
     (16, 12, 16, 16), (3, 40, 16, 64), (5, 9, 2, 3),   # last: truncated solve
+    (2, 260, 2, 4),     # a cluster of 16, short last band, truncated
+    (1, 130, 16, 16),   # one region on a cluster of 16
 ])
 def test_expansion_kernel_matches_plain(cuda, n, s, rounds, sweeps):
-    arrays, lam, tau = synthetic.fused_move_problem(
-        np.random.default_rng(n), n, s)
-    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    """Masks bitwise equal to the plain version's, at the card's plan."""
+    args, lam, tau = _expansion_problem(cuda, n, s)
     kw = dict(lam=lam, tau=tau, max_global_rounds=rounds,
               sweeps_per_round=sweeps)
     before = mincut_cuda.expansion_accept.launches
@@ -45,6 +74,7 @@ def test_expansion_kernel_matches_plain(cuda, n, s, rounds, sweeps):
     assert mincut_cuda.expansion_accept.launches == before + 1
     assert got.dtype == torch.bool and got.shape == (n, s, s)
     want = mincut_cuda.expansion_accept_reference(*args, **kw)
+    assert torch.equal(got, want)
     c00, c01, c10, t0, t1 = mincut_cuda.fused_terms(*args, lam, tau)
     e_got = mincut.move_energy_delta(got, t0, t1, c00, c01, c10).cpu()
     e_want = mincut.move_energy_delta(want, t0, t1, c00, c01, c10).cpu()
@@ -54,16 +84,28 @@ def test_expansion_kernel_matches_plain(cuda, n, s, rounds, sweeps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FORCED_PLANS))
+def test_expansion_kernel_forced_plans(cuda, case):
+    n, s, plan = FORCED_PLANS[case]
+    args, lam, tau = _expansion_problem(cuda, n, s)
+    kw = dict(lam=lam, tau=tau, max_global_rounds=16, sweeps_per_round=16)
+    before = mincut_cuda.expansion_accept.launches
+    got = mincut_cuda.launch_expansion(*args, plan=plan(s), **kw)
+    torch.cuda.synchronize()
+    assert mincut_cuda.expansion_accept.launches == before + 1
+    assert torch.equal(got, mincut_cuda.expansion_accept_reference(*args,
+                                                                   **kw))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,s,rounds,sweeps", [
     (16, 12, 64, 16), (3, 40, 64, 16), (5, 9, 2, 3),   # last: truncated solve
+    (2, 260, 2, 4),     # a cluster of 16, short last band, truncated
+    (1, 130, 64, 16),   # one region on a cluster of 16
 ])
 def test_mincut_kernel_matches_plain(cuda, n, s, rounds, sweeps):
     """The min-cut of prebuilt (fusion) graphs: equal accept masks."""
-    arrays, lam, tau = synthetic.fusion_move_problem(
-        np.random.default_rng(n), n, s)
-    terms = mincut_cuda.fusion_terms(
-        *[torch.as_tensor(a, device=cuda) for a in arrays], lam, tau)
-    graph = [x.contiguous() for x in mincut.build_fusion_graph(*terms)]
+    graph = _fusion_graph(cuda, n, s)
     before = mincut_cuda.solve_graph.launches
     got = mincut_cuda.solve_graph(*graph, max_global_rounds=rounds,
                                   sweeps_per_round=sweeps)
@@ -72,6 +114,29 @@ def test_mincut_kernel_matches_plain(cuda, n, s, rounds, sweeps):
     assert got.dtype == torch.bool and got.shape == (n, s, s)
     want = mincut.solve_preflow(*graph, rounds, sweeps)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FORCED_PLANS))
+def test_mincut_kernel_forced_plans(cuda, case):
+    n, s, plan = FORCED_PLANS[case]
+    graph = _fusion_graph(cuda, n, s)
+    before = mincut_cuda.solve_graph.launches
+    got = mincut_cuda.launch_mincut(*graph, max_global_rounds=64,
+                                    sweeps_per_round=16, plan=plan(s))
+    torch.cuda.synchronize()
+    assert mincut_cuda.solve_graph.launches == before + 1
+    assert torch.equal(got, mincut.solve_preflow(*graph, 64, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["expansion_accept", "mincut_accept"])
+def test_card_plans_match_the_recorded_ones(cuda, kernel):
+    """The card's answer for how many clusters fit leads to the plans that
+    launch_plan gives without it at the main path's shapes."""
+    for s, n in ((42, 468), (129, 54), (387, 6)):
+        assert mincut_cuda.card_plan(kernel, s, n) == \
+            mincut_cuda.launch_plan(s, n)
 
 
 @pytest.mark.cuda
