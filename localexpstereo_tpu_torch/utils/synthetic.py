@@ -8,7 +8,9 @@ Middlebury V3 full resolution.
 
 :func:`fused_move_problem` and :func:`fusion_move_problem` make random
 inputs of one fused expansion move and of one fusion move, for holding the
-kernels against their plain versions.
+kernels against their plain versions; :func:`bench_solver` and
+:func:`unary_windows` the solver of that problem and the main path's unary
+windows, for driving and timing the port on the card.
 """
 from __future__ import annotations
 
@@ -129,3 +131,48 @@ def unary_window_problem(rng: np.random.Generator, n: int, f: int, d: int,
     split = tuple(np.ascontiguousarray(stats[..., a:b])
                   for a, b in ((0, 3), (3, 6), (6, 12)))
     return vol, props, fox, foy, split, scale, th_col
+
+
+def bench_solver(scale: float, device: str, sizes=None, windr: int = 20,
+                 route: str = "auto", seed: int = 0):
+    """The port's solver of :func:`build_problem` at ``scale`` on
+    ``device``: PARAMS_GF with windR ``windr``, lambda 0.5, th_col 0.5, the
+    unary route ``route``, and the reference's layer sizing
+    (``main.cpp:395-397``) unless ``sizes`` are given. Returns (solver,
+    truth, sizes)."""
+    from ..config import PARAMS_GF
+    from ..models import engine
+    img, vol, h, w, nd, truth = build_problem(scale)
+    params = PARAMS_GF.replace(windR=windr, lambda_=0.5, th_col=0.5)
+    solver = engine.LocalExpansionSolver(img, img, params,
+                                         max_disp=float(nd - 1), vol0=vol,
+                                         vol1=vol, seed=seed, device=device,
+                                         unary_backend=route)
+    sizes = sizes or [int(w * f) for f in (0.01, 0.03, 0.09)]
+    for i, sz in enumerate(sizes):
+        solver.add_layer(sz, engine.LAYER0_PROPOSERS if i == 0
+                         else engine.COARSE_PROPOSERS)
+    return solver, truth, sizes
+
+
+def unary_windows(solver, truth: np.ndarray, layer, rng: np.random.Generator):
+    """The filter windows of color (0, 0) of ``layer`` (one call of the
+    main path's unary) and one proposal per region near the planted truth
+    at the region's centre, on the solver's device. Returns (proposals
+    [N, 4], fox [N], foy [N], F)."""
+    import torch
+    cfg = solver.cfg
+    s, r = layer.unit_size, cfg.params.guided_radius
+    ox, oy, _ = layer.color_regions(0, 0)
+    cx = np.clip(ox + s // 2, 0, cfg.width - 1)
+    cy = np.clip(oy + s // 2, 0, cfg.height - 1)
+    n = len(ox)
+    a = rng.uniform(-0.02, 0.02, n)
+    b = rng.uniform(-0.02, 0.02, n)
+    c = truth[cy, cx] + rng.uniform(-0.5, 0.5, n) - a * cx - b * cy
+    props = np.stack([a, b, c, np.zeros(n)], -1).astype(np.float32)
+    dev = solver.data.vol.device
+    return (torch.as_tensor(props, device=dev),
+            torch.as_tensor((ox - s - r).astype(np.int64), device=dev),
+            torch.as_tensor((oy - s - r).astype(np.int64), device=dev),
+            3 * s + 2 * r)

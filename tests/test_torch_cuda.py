@@ -130,13 +130,58 @@ def test_mincut_kernel_forced_plans(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["expansion_accept", "mincut_accept"])
+@pytest.mark.parametrize("kernel", ["expansion_accept", "mincut_accept",
+                                    "sample_windows"])
 def test_card_plans_match_the_recorded_ones(cuda, kernel):
-    """The card's answer for how many clusters fit leads to the plans that
-    launch_plan gives without it at the main path's shapes."""
+    """The card's answer for how many clusters (or unary blocks) fit leads
+    to the plans that launch_plan gives without it at the main path's
+    shapes."""
+    if kernel == "sample_windows":
+        for f, n in ((62, 468), (149, 54), (407, 6)):
+            for r in (0, 10):
+                assert unary_cuda.card_plan(f, n, r) == \
+                    unary_cuda.launch_plan(f, n, r)
+        return
     for s, n in ((42, 468), (129, 54), (387, 6)):
         assert mincut_cuda.card_plan(kernel, s, n) == \
             mincut_cuda.launch_plan(s, n)
+
+
+def _unary_check(cuda, dtype, n, f, d, r, h, w, plan=None):
+    """One launch of sample_windows (the card's plan, or ``plan``) against
+    its plain version: raw costs within 1e-6, filtered ones within 2e-4 on
+    positions whose box holds an in-image pixel. Returns the share of
+    those positions whose values are bitwise equal."""
+    vp = 12
+    vol, props, fox, foy, stats, scale, th = \
+        synthetic.unary_window_problem(np.random.default_rng(n + f), n, f,
+                                       d, h, w, vp, dtype)
+    args = (torch.as_tensor(vol, device=cuda), vp,
+            torch.as_tensor(props, device=cuda),
+            torch.as_tensor(fox, device=cuda),
+            torch.as_tensor(foy, device=cuda), f, h, w)
+    kw = dict(min_disp=0.0, th_col=th, scale=scale, zero=0.0, pad=vp, r_gf=r,
+              stats=tuple(torch.as_tensor(a, device=cuda) for a in stats))
+    before = unary_cuda.sample_windows.launches
+    if plan is None:
+        got = unary_cuda.sample_windows(*args, **kw)
+    else:
+        got = unary_cuda.launch_windows(*args, **kw, plan=plan)
+    torch.cuda.synchronize()
+    assert unary_cuda.sample_windows.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, f, f)
+    want = unary_cuda.sample_windows_reference(*args, **kw)
+    if r == 0:
+        torch.testing.assert_close(got, want, rtol=0, atol=UNARY_RAW_ATOL)
+        return float((got == want).double().mean())
+    ys = args[4][:, None, None] + torch.arange(f, device=cuda)[None, :, None]
+    xs = args[3][:, None, None] + torch.arange(f, device=cuda)[None, None, :]
+    fmask = ((xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)).float()
+    support = boxfilter.boxsum2d(fmask, r) > 0.5
+    torch.testing.assert_close(torch.where(support, got, 0.0),
+                               torch.where(support, want, 0.0), rtol=0,
+                               atol=UNARY_GF_ATOL)
+    return float((got == want)[support].double().mean())
 
 
 @pytest.mark.cuda
@@ -145,32 +190,35 @@ def test_card_plans_match_the_recorded_ones(cuda, kernel):
     (5, 7, 6, 0), (17, 9, 12, 0), (9, 11, 6, 3), (20, 62, 24, 10),
 ])
 def test_unary_kernel_matches_plain(cuda, dtype, n, f, d, r):
-    h, w, vp = 40, 52, 12
-    vol, props, fox, foy, stats, scale, th = \
-        synthetic.unary_window_problem(np.random.default_rng(n), n, f, d, h,
-                                       w, vp, dtype)
-    args = (torch.as_tensor(vol, device=cuda), vp,
-            torch.as_tensor(props, device=cuda),
-            torch.as_tensor(fox, device=cuda),
-            torch.as_tensor(foy, device=cuda), f, h, w)
-    kw = dict(min_disp=0.0, th_col=th, scale=scale, zero=0.0, pad=vp, r_gf=r,
-              stats=tuple(torch.as_tensor(a, device=cuda) for a in stats))
-    before = unary_cuda.sample_windows.launches
-    got = unary_cuda.sample_windows(*args, **kw)
-    torch.cuda.synchronize()
-    assert unary_cuda.sample_windows.launches == before + 1
-    assert got.dtype == torch.float32 and got.shape == (n, f, f)
-    want = unary_cuda.sample_windows_reference(*args, **kw)
-    if r == 0:
-        torch.testing.assert_close(got, want, rtol=0, atol=UNARY_RAW_ATOL)
-        return
-    ys = args[4][:, None, None] + torch.arange(f, device=cuda)[None, :, None]
-    xs = args[3][:, None, None] + torch.arange(f, device=cuda)[None, None, :]
-    fmask = ((xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)).float()
-    support = boxfilter.boxsum2d(fmask, r) > 0.5
-    torch.testing.assert_close(torch.where(support, got, 0.0),
-                               torch.where(support, want, 0.0), rtol=0,
-                               atol=UNARY_GF_ATOL)
+    _unary_check(cuda, dtype, n, f, d, r, 40, 52)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("f", [149, 407])
+def test_unary_kernel_main_path_sizes(cuda, dtype, f):
+    """The main path's middle and widest windows (N = 2, r = 10) on an
+    image larger than F, under the card's plan (strips and row chunks)."""
+    assert _unary_check(cuda, dtype, 2, f, 24, 10, 430, 470) >= 0.999
+
+
+#: Plans forced on the unary kernel: (F, r, W, Hc).
+UNARY_PLANS = {
+    "narrow-strips": (62, 10, 32, 62),
+    "row-chunks": (62, 10, 62, 9),
+    "strips-and-chunks": (149, 10, 64, 40),
+    "one-tile": (149, 10, 149, 149),
+    "short-last-strip": (50, 3, 32, 17),
+    "raw-one-row": (62, 0, 62, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(UNARY_PLANS))
+def test_unary_kernel_forced_plans(cuda, case):
+    f, r, width, rows = UNARY_PLANS[case]
+    plan = unary_cuda.tile_plan(f, r, width, rows)
+    _unary_check(cuda, "uint8", 6, f, 16, r, 120, 150, plan=plan)
 
 
 @pytest.mark.cuda
