@@ -24,19 +24,21 @@ Phases, each printing JSON lines:
             the launch plan;
 5. unary_kernel: ``sample_windows`` (CUDA) against its plain version on the
             windows of the 1436 x 992 x 145 problem, (F, N) = (62, 468),
-            (149, 54), (407, 6), raw and guided-filtered (r 10): max abs
-            error and the share of bitwise-equal values on supported
-            positions, median milliseconds of both, the bound, and the
-            launch plan (W, Hc, threads, shared memory, blocks, blocks an
-            SM, registers);
+            (149, 54), (407, 6), raw and guided-filtered (r 10), on the
+            uint8 volume and on the bfloat16 one: max abs error and the
+            share of bitwise-equal values on supported positions, median
+            milliseconds of both, the bound, and the launch plan (W, Hc,
+            threads, shared memory, blocks, blocks an SM, registers);
 6. small:   a small V3 solve (1 greedy + 1 graph-cut sweep) on the card
             against the same solve on the CPU (plain versions), at windR 6
-            and 20, on the "auto" and the "dma" unary routes, and once with
-            ``run(fuse_with=...)``: energies within the trajectory
-            tolerance;
+            and 20, on the "auto" and the "dma" unary routes, once with
+            ``run(fuse_with=...)``, and on both views
+            (``run(view_modes=(0, 1))``, both routes): energies within the
+            trajectory tolerance; the card's post-process of the CPU
+            solve's raw labelings equal to the CPU's;
 7. slice:   ``LocalExpansionSolver(device="cuda")`` on the 1436 x 992 x 145
-            synthetic problem, 3 layers, 1 greedy + 1 graph-cut sweep, then
-            2 + 2 (the full 2 + 5 runs in cli and fuse): seconds per sweep
+            synthetic problem, 3 layers, 1 greedy + 1 graph-cut sweep (the
+            full 2 + 5 runs in cli, fuse and dual): seconds per sweep
             and per layer,
             energies, bad rates against the planted truth, and the kernel
             launch counts of each run;
@@ -50,7 +52,15 @@ Phases, each printing JSON lines:
             against the last graph-cut one, all three kernels' launch
             counts, time.txt, the auxiliary solve's, the warm-start unary's
             and each layer's fusion seconds;
-10. profile: the init + one greedy sweep on each unary route, unprofiled
+10. dual:   the same command line with ``-doDual 1`` on the same directory
+            (2 + 5 on both views, then the post-process): time.txt, wall
+            and set-up seconds, the post-process's seconds by step (check,
+            fill, median) and each view's failed pixels, the 9 log rows,
+            bad rates of disp0.pfm and disp0raw.pfm against the truth, both
+            kernels' launches (twice the cli run's), the peak device
+            memory; disp0.pfm differs from disp0raw.pfm only where the
+            check failed, and every consistency image is there;
+11. profile: the init + one greedy sweep on each unary route, unprofiled
             in turns (2 each), then the ``dma`` route's under
             torch.profiler, and one graph-cut sweep under torch.profiler:
             wall seconds, and for the profiled windows device-busy seconds,
@@ -58,7 +68,8 @@ Phases, each printing JSON lines:
             kernel's seconds per move-window size (CUDA events), and the
             graph-cut sweep's peak device memory.
 
-Then a ``{"kernels": [...]}`` line (launches from the ``fuse`` run), the
+Then a ``{"kernels": [...]}`` line (launches from the ``fuse`` run, with the
+``cli`` and ``dual`` runs' beside them), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -278,12 +289,14 @@ def phase_mincut_kernel(torch):
 
 
 class Recorder:
-    """Evaluator hook: energy and wall time after the init and each sweep
-    (synchronizes the card, so sweep times are complete)."""
+    """Evaluator hook: energy and wall time of view 0 after the init and
+    each sweep (synchronizes the card, so sweep times are complete), and
+    every view's energies."""
 
     def __init__(self, torch):
         self.torch = torch
         self.rows = []
+        self.energies = {}
 
     def start(self):
         pass
@@ -298,7 +311,9 @@ class Recorder:
         total = float(e[0])
         if labeling_m.is_cuda:
             self.torch.cuda.synchronize()
-        self.rows.append((index, total, time.perf_counter()))
+        self.energies.setdefault(mode, []).append(total)
+        if mode == 0:
+            self.rows.append((index, total, time.perf_counter()))
 
 
 def bad_rates(solver, truth):
@@ -340,6 +355,7 @@ def phase_small(torch):
                 raise AssertionError(f"CUDA and CPU solves disagree at windR "
                                      f"{windr} on the {route} route")
     phase_small_fuse(torch)
+    phase_small_dual(torch)
 
 
 def phase_small_fuse(torch):
@@ -351,7 +367,7 @@ def phase_small_fuse(torch):
     from localexpstereo_tpu_torch.utils import synthetic
     aux, _, _ = synthetic.bench_solver(0.06, "cpu", sizes=[4, 8, 16],
                                        seed=1)
-    ext = aux.run(iterations=1, pm_iterations=1).numpy()
+    ext = aux.run(iterations=1, pm_iterations=1)[0].numpy()
     out = {}
     for device in ("cuda", "cpu"):
         solver, truth, sizes = synthetic.bench_solver(0.06, device,
@@ -374,15 +390,143 @@ def phase_small_fuse(torch):
         raise AssertionError("CUDA and CPU fused solves disagree")
 
 
+class PostProcessTimer:
+    """Stands in for the post-process's functions while it is active:
+    times every ``post_process`` call and, synchronized, its steps (check:
+    ``consistency_check``; fill: ``_dilate3`` and ``fill_holes``; median:
+    ``weighted_median_at``), counts each view's failed pixels, and keeps the
+    call's inputs, outputs and fail maps (on the CPU). Calls from outside
+    ``post_process`` (the evaluator's consistency images) pass through."""
+
+    STEPS = {"consistency_check": "check_s", "_dilate3": "fill_s",
+             "fill_holes": "fill_s", "weighted_median_at": "median_s"}
+
+    def __init__(self, torch, postprocess):
+        self.torch, self.pp = torch, postprocess
+        self.saved = {name: getattr(postprocess, name)
+                      for name in ("post_process", *self.STEPS)}
+        self.calls = []
+        self.active = False
+
+    def _sync(self):
+        if self.torch.cuda.is_available():
+            self.torch.cuda.synchronize()
+
+    def _step(self, name):
+        fn, key = self.saved[name], self.STEPS[name]
+
+        def wrapper(*args, **kwargs):
+            if not self.active:
+                return fn(*args, **kwargs)
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self._sync()
+            call = self.calls[-1]
+            call[key] += time.perf_counter() - t0
+            if name == "consistency_check":
+                call["fail_maps"] = [f.cpu() for f in out]
+            elif name == "weighted_median_at":
+                call["failed"].append(int(args[2].sum()))
+            return out
+        return wrapper
+
+    def _post_process(self, lab_l, lab_r, *args, **kwargs):
+        # Copies: the engine writes the outputs into the state that the
+        # inputs may view.
+        call = {"check_s": 0.0, "fill_s": 0.0, "median_s": 0.0,
+                "failed": [], "inputs": tuple(x.to("cpu", copy=True)
+                                              for x in (lab_l, lab_r))}
+        self.calls.append(call)
+        self._sync()
+        t0 = time.perf_counter()
+        self.active = True
+        try:
+            out = self.saved["post_process"](lab_l, lab_r, *args, **kwargs)
+        finally:
+            self.active = False
+        self._sync()
+        call["total_s"] = time.perf_counter() - t0
+        call["outputs"] = tuple(x.to("cpu", copy=True) for x in out)
+        return out
+
+    def __enter__(self):
+        for name in self.STEPS:
+            setattr(self.pp, name, self._step(name))
+        self.pp.post_process = self._post_process
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.pp, name, fn)
+
+
+def phase_small_dual(torch):
+    """run(view_modes=(0, 1)), 1 + 1 sweeps, windR 20, on the card and on
+    the CPU, on both unary routes (the command line's volumes for a
+    directory without im1.acrt): each view's energies within the
+    trajectory tolerance; then post_process on the card of the CPU run's
+    raw labelings against the CPU's own post-process of them: equal
+    labelings (the differing share of pixels is printed)."""
+    from localexpstereo_tpu_torch.models import postprocess
+    from localexpstereo_tpu_torch.ops import unary_cuda
+    from localexpstereo_tpu_torch.utils import synthetic
+    for route in ("auto", "dma"):
+        out = {}
+        for device in ("cuda", "cpu"):
+            solver, truth, sizes = synthetic.bench_solver(
+                0.06, device, sizes=[4, 8, 16], route=route, dual=True)
+            rec = Recorder(torch)
+            solver.set_evaluator(rec)
+            unary_cuda.sample_windows.launches = 0
+            with PostProcessTimer(torch, postprocess) as post:
+                solver.run(iterations=1, view_modes=(0, 1),
+                           pm_iterations=1)
+            out[device] = (rec.energies, post.calls[0], solver,
+                           unary_cuda.sample_windows.launches)
+        (e_gpu, _, _, n_gpu), (e_cpu, call, cpu, _) = out["cuda"], out["cpu"]
+        ok = all(len(e_gpu[m]) == len(e_cpu[m]) == 4
+                 and all(abs(a - b) <= 0.002 * abs(b) + 1e-3
+                         for a, b in zip(e_gpu[m], e_cpu[m]))
+                 for m in (0, 1))
+        ok &= (n_gpu > 0) == (route == "dma")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = postprocess.post_process(
+            *(x.cuda() for x in call["inputs"]), cpu.im0, cpu.im1,
+            cpu.params, threshold=1.5)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        differ = [float((g.cpu() != w).any(-1).double().mean())
+                  for g, w in zip(got, call["outputs"])]
+        ok &= max(differ) == 0.0
+        emit({"phase": "small", "route": route, "windR": 20,
+              "view_modes": [0, 1], "layers": sizes,
+              "energies_cuda": e_gpu, "energies_cpu": e_cpu,
+              "sample_windows_launches_cuda": n_gpu,
+              "failed_pixels": call["failed"],
+              "post_process_s": {"cuda": card_s, "cpu": call["total_s"]},
+              "post_process_differing_share": differ, "agree": ok})
+        if not ok:
+            raise AssertionError(f"CUDA and CPU dual solves or post-processes "
+                                 f"disagree on the {route} route")
+
+
 def phase_unary_kernel(torch):
     """sample_windows against its plain version on the main path's windows
-    (uint8 volume, r 10) of every layer, raw and guided-filtered."""
-    from localexpstereo_tpu_torch.ops import boxfilter, unary_cuda
+    (r 10) of every layer, raw and guided-filtered, on the uint8 volume of
+    the main path and on the bfloat16 volume (the float volume rounded to
+    nearest even, as build_energy(vol_dtype="bfloat16") stores it)."""
     from localexpstereo_tpu_torch.utils import synthetic
     solver, truth, sizes = synthetic.bench_solver(1.0, "cuda")
     solver.finalize()
     data, cfg = solver.data, solver.cfg
     r = cfg.params.guided_radius
+    vp = cfg.vol_pad
+    bf16 = torch.from_numpy(np.pad(solver.vol0, ((0, 0), (vp, vp), (vp, vp)))
+                            ).to(torch.bfloat16).cuda()
+    volumes = (("uint8", data.vol[0], cfg.vol_scale, cfg.vol_zero),
+               ("bfloat16", bf16, 1.0, 0.0))
     rng = np.random.default_rng(0)
     rows = []
     for layer in solver.layers:
@@ -394,50 +538,63 @@ def phase_unary_kernel(torch):
         xs = fox[:, None, None] + it[None, None, :]
         inside = ((xs >= 0) & (xs < cfg.width) & (ys >= 0)
                   & (ys < cfg.height)).float()
-        for r_gf in (0, r):
-            support = boxfilter.boxsum2d(inside, r_gf) > 0.5
-            args = (data.vol[0], cfg.vol_pad, props, fox, foy, f,
-                    cfg.height, cfg.width)
-            kw = dict(min_disp=cfg.min_disp, th_col=cfg.params.th_col,
-                      scale=cfg.vol_scale, zero=cfg.vol_zero,
-                      stats=(data.guide[0], data.gf_mean[0], data.gf_inv[0]),
-                      pad=cfg.pad, r_gf=r_gf)
-            got = unary_cuda.sample_windows(*args, **kw)
-            want = unary_cuda.sample_windows_reference(*args, **kw)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().masked_fill(~support, 0).max())
-            ok = bool(torch.isfinite(got.masked_fill(~support, 0)).all()
-                      and err <= UNARY_ATOL[r_gf])
-            bitwise = float((got == want)[support].double().mean())
-            # Bytes: each window pixel's output and two volume taps, the
-            # windows' union of the statistics (12 float32 a pixel), the
-            # proposals and origins; operations: per window pixel.
-            span = [(nb - 1) * min(f, 4 * layer.unit_size) + f
-                    for nb in (layer.nbx, layer.nby)]
-            px = n * f * f
-            nbytes = (px * (4 + 2 * data.vol.element_size())
-                      + (span[0] * span[1] * 48 if r_gf else 0)
-                      + n * (16 + 2 * fox.element_size()))
-            bound_ms, bound_by = bound(
-                nbytes, px * (OPS_SAMPLE + (OPS_GUIDED if r_gf else 0)))
-            row = {"F": f, "N": n, "r_gf": r_gf,
-                   "plan": unary_cuda.describe(f, n, r_gf),
-                   "max_abs_err": err, "bitwise_equal": bitwise,
-                   "atol": UNARY_ATOL[r_gf], "ok": ok,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "bytes": nbytes,
-                   "ms": time_ms(torch, lambda: unary_cuda.sample_windows(
-                       *args, **kw), 5),
-                   "plain_ms": time_ms(
-                       torch, lambda: unary_cuda.sample_windows_reference(
-                           *args, **kw), 3)}
-            emit({"phase": "unary_kernel", **row})
-            if not ok:
-                raise AssertionError(f"sample_windows disagrees: {row}")
-            rows.append(row)
-    del solver, data
+        windows = (layer, props, fox, foy, f, inside)
+        for volume in volumes:
+            for r_gf in (0, r):
+                rows.append(unary_row(torch, data, cfg, volume, windows,
+                                      r_gf))
+    del solver, data, bf16, volumes
     torch.cuda.empty_cache()
     return rows
+
+
+def unary_row(torch, data, cfg, volume, windows, r_gf):
+    """One ``unary_kernel`` row: the kernel against its plain version on
+    one layer's windows and one volume (dtype, tensor, decode scale and
+    zero), its plan, times and bound."""
+    from localexpstereo_tpu_torch.ops import boxfilter, unary_cuda
+    dtype, vol, scale, zero = volume
+    layer, props, fox, foy, f, inside = windows
+    n = props.shape[0]
+    support = boxfilter.boxsum2d(inside, r_gf) > 0.5
+    args = (vol, cfg.vol_pad, props, fox, foy, f, cfg.height, cfg.width)
+    kw = dict(min_disp=cfg.min_disp, th_col=cfg.params.th_col, scale=scale,
+              zero=zero,
+              stats=(data.guide[0], data.gf_mean[0], data.gf_inv[0]),
+              pad=cfg.pad, r_gf=r_gf)
+    got = unary_cuda.sample_windows(*args, **kw)
+    want = unary_cuda.sample_windows_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().masked_fill(~support, 0).max())
+    ok = bool(torch.isfinite(got.masked_fill(~support, 0)).all()
+              and err <= UNARY_ATOL[r_gf])
+    bitwise = float((got == want)[support].double().mean())
+    # Bytes: each window pixel's output and two volume taps, the windows'
+    # union of the statistics (12 float32 a pixel), the proposals and
+    # origins; operations: per window pixel.
+    span = [(nb - 1) * min(f, 4 * layer.unit_size) + f
+            for nb in (layer.nbx, layer.nby)]
+    px = n * f * f
+    nbytes = (px * (4 + 2 * vol.element_size())
+              + (span[0] * span[1] * 48 if r_gf else 0)
+              + n * (16 + 2 * fox.element_size()))
+    bound_ms, bound_by = bound(
+        nbytes, px * (OPS_SAMPLE + (OPS_GUIDED if r_gf else 0)))
+    row = {"F": f, "N": n, "r_gf": r_gf, "dtype": dtype,
+           "plan": unary_cuda.describe(f, n, r_gf,
+                                       unary_cuda.VOL_TYPES[vol.dtype]),
+           "max_abs_err": err, "bitwise_equal": bitwise,
+           "atol": UNARY_ATOL[r_gf], "ok": ok,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ms": time_ms(torch, lambda: unary_cuda.sample_windows(
+               *args, **kw), 5),
+           "plain_ms": time_ms(
+               torch, lambda: unary_cuda.sample_windows_reference(
+                   *args, **kw), 3)}
+    emit({"phase": "unary_kernel", **row})
+    if not ok:
+        raise AssertionError(f"sample_windows disagrees: {row}")
+    return row
 
 
 def timed_layers(torch, engine, layer_times):
@@ -601,8 +758,8 @@ def phase_profile(torch):
     engine.mincut_cuda = timed
     try:
         key = rng.fold_in(rng.PRNGKey(solver.seed), 3000 + 1)
-        gc = profiled(torch, lambda: solver._sweep(solver._state, 0, 0, True,
-                                                   key))
+        gc = profiled(torch, lambda: solver._sweep(solver._state[0], 0, 0,
+                                                   True, key))
     finally:
         engine.mincut_cuda = mincut_cuda
     gc["kernel_by_shape"] = timed.by_shape()
@@ -811,8 +968,108 @@ def phase_fuse(torch):
     return row
 
 
+def disparity_bad(disp, truth, threshold):
+    return float((np.abs(disp - truth) > threshold).mean() * 100)
+
+
+def phase_dual(torch, cli_row=None):
+    """The command line with -doDual 1 on the same directory (no im1.acrt:
+    the right volume is recovered from the left), -unaryBackend dma, the
+    default 2 + 5 schedule on both views, then the post-process. With the
+    cli phase's row, the kernels' launches are held at twice its own."""
+    from localexpstereo_tpu_torch.models import energy, postprocess
+    from localexpstereo_tpu_torch.utils import pfm
+    scene, shape, write_s = cli_scene()
+    truth = pfm.read_pfm(str(scene / "disp0GT.pfm"))
+    fns = kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+    setup_s = []
+    build_energy = energy.build_energy
+
+    def timed_build(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = build_energy(*args, **kwargs)
+        torch.cuda.synchronize()
+        setup_s.append(time.perf_counter() - t0)
+        return out
+
+    out = CLI_DIR / "dual"
+    energy.build_energy = timed_build
+    try:
+        with PostProcessTimer(torch, postprocess) as post:
+            wall_s, log, time_txt, disp = run_cli(
+                ["-unaryBackend", "dma", "-doDual", "1", "-device", "cuda"],
+                out)
+    finally:
+        energy.build_energy = build_energy
+    raw = pfm.read_pfm(str(out / "disp0raw.pfm"))
+    launches = {k: fns[k].launches
+                for k in ("expansion_accept", "sample_windows")}
+    energies = [r[1] for r in log]
+    call = post.calls[-1]          # the timed run's (the first: warm-up)
+    fail_u8 = call["fail_maps"][0].numpy()
+    fail0 = fail_u8 > 0
+    changed = disp != raw
+    debug = out / "debug"
+    missing = [f"result{m}C{i:02d}.png" for i in range(1, 1 + 2 + 5)
+               for m in (0, 1)
+               if not (debug / f"result{m}C{i:02d}.png").exists()]
+    row = {"phase": "dual", "argv": "-mode MiddV3 -unaryBackend dma "
+                                    "-doDual 1 -device cuda (2 + 5)",
+           "scene_write_s": write_s, "wall_s": wall_s, "time_txt": time_txt,
+           "setup_s": setup_s,
+           "time": [r[0] for r in log], "energies": energies,
+           "sweep_s": [b[0] - a[0] for a, b in zip(log, log[1:])],
+           "bad_all": [r[4] for r in log],
+           "post_process_s": {k: call[k] for k in
+                              ("check_s", "fill_s", "median_s", "total_s")},
+           "post_process_calls": len(post.calls),
+           "failed_pixels": call["failed"],
+           "failed_share": [c / disp.size for c in call["failed"]],
+           "bad_disp0": [disparity_bad(disp, truth, t) for t in (0.5, 1.0)],
+           "bad_disp0raw": [disparity_bad(raw, truth, t)
+                            for t in (0.5, 1.0)],
+           # By the check's verdict on view 0 (128: the lookup left the
+           # image; 255: the views disagree; 0: passed), the pixels off
+           # the truth by more than 1.0 before and after the post-process,
+           # and the pixels.
+           "bad10_by_fail": {
+               str(v): [int((np.abs(img - truth) > 1.0)[fail_u8 == v].sum())
+                        for img in (raw, disp)] + [int((fail_u8 == v).sum())]
+               for v in (0, 128, 255)},
+           "changed_pixels": int(changed.sum()),
+           "changed_outside_failed": int((changed & ~fail0).sum()),
+           "launches": launches,
+           "launches_over_cli": ({k: v / max(cli_row["launches"][k], 1)
+                                  for k, v in launches.items()}
+                                 if cli_row else None),
+           "consistency_images_missing": missing,
+           "disp_shape": list(disp.shape), "raw_shape": list(raw.shape),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(row)
+    if len(energies) != 1 + 2 + 5 + 1:
+        raise AssertionError(f"expected 9 log rows, got {len(energies)}")
+    check_disparity(disp, shape)
+    check_disparity(raw, shape)
+    if row["changed_outside_failed"] or missing:
+        raise AssertionError(f"post-process changed pixels that passed the "
+                             f"check, or consistency images are missing: "
+                             f"{row['changed_outside_failed']}, {missing}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    if cli_row and any(abs(v - 2.0) > 0.1
+                       for v in row["launches_over_cli"].values()):
+        raise AssertionError(f"launches are not twice the cli run's: {row}")
+    gc = energies[2:8]
+    if any(b > a for a, b in zip(gc, gc[1:])):
+        raise AssertionError(f"graph-cut energy rose: {energies}")
+    return row
+
+
 PHASES = ("kernel", "mincut_kernel", "unary_kernel", "small", "slice", "cli",
-          "fuse", "profile")
+          "fuse", "dual", "profile")
 
 
 def main(argv) -> int:
@@ -847,23 +1104,25 @@ def main(argv) -> int:
         urows = timed("unary_kernel", phase_unary_kernel)
         timed("small", phase_small)
         first = timed("slice_1_1", run_slice, pm_iterations=1, iterations=1)
-        timed("slice_2_2", run_slice, pm_iterations=2, iterations=2)
         cli_row = timed("cli", phase_cli)
         fuse_row = timed("fuse", phase_fuse)
+        dual_row = timed("dual", phase_dual, cli_row)
         timed("profile", phase_profile)
         emit({"phase_seconds": seconds})
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     # ms / plain_ms / bound_ms: one call at each of the three shapes, summed
-    # (for sample_windows, the guided-filtered calls of the main path).
+    # (for sample_windows, the guided-filtered calls of the main path, on
+    # its uint8 volume).
     # launches: the fuse run's.
-    gf = [r for r in urows if r["r_gf"] > 0]
+    gf = [r for r in urows if r["r_gf"] > 0 and r["dtype"] == "uint8"]
     emit({"kernels": [
         {"name": "expansion_accept", "route": "cuda",
          "source": "localexpstereo_tpu_torch/csrc/expansion_accept.cu",
          "replaces": "localexpstereo_tpu/ops/mincut_pallas.py:636",
          "launches": fuse_row["launches"]["expansion_accept"],
          "launches_cli": cli_row["launches"]["expansion_accept"],
+         "launches_dual": dual_row["launches"]["expansion_accept"],
          "launches_slice": first["expansion_accept_launches"],
          **kernel_entry(rows)},
         {"name": "sample_windows", "route": "cuda",
@@ -871,6 +1130,7 @@ def main(argv) -> int:
          "replaces": "localexpstereo_tpu/ops/unary_pallas.py:256",
          "launches": fuse_row["launches"]["sample_windows"],
          "launches_cli": cli_row["launches"]["sample_windows"],
+         "launches_dual": dual_row["launches"]["sample_windows"],
          **kernel_entry(gf),
          "max_abs_err": max(r["max_abs_err"] for r in urows)},
         {"name": "mincut_accept", "route": "cuda",

@@ -3,7 +3,7 @@
 
     python -m localexpstereo_tpu_torch.cli.main -mode MiddV3 \\
         -targetDir DIR -outputDir OUT [-unaryBackend dma] [-fuseSeeds N] \\
-        [-device cpu]
+        [-doDual 1] [-volPrecision uint8|bfloat16|float32] [-device cpu]
 
 Flags are the JAX CLI's (``main.cpp:33-50`` plus its own), in both ``-name
 value`` and ``--name value`` form, with ``-device cuda|cpu`` in place of
@@ -15,22 +15,26 @@ MiddV3 mode: images ``im0/im1.png``, ``calib.txt``, the cost volume
 ``im0.acrt`` (``im1.acrt``, or the L->R recovery, for the right view),
 ground truth ``disp0GT.pfm``; layers {1%, 3%, 9%} of the width, error
 threshold 1.0 (x0.5 Q, x2 F) (``main.cpp:331-421``); init, ``-pmIterations``
-greedy sweeps and ``-iterations`` graph-cut sweeps of view 0.
+greedy sweeps and ``-iterations`` graph-cut sweeps of view 0, or with
+``-doDual 1`` of both views (each sweep on view 0, then view 1) followed by
+the left-right post-process at threshold 1.5 and one more log row.
 
 ``-fuseSeeds N`` (N > 1) first solves seeds ``seed + 1 .. seed + N - 1``
-with the same schedule, one after the other and untimed, on the primary's
-energy; the timed solve then fuses each of their labelings into its result
-at every layer, coarsest first (the fusion move), and logs one more row.
+with the same schedule and views, one after the other and untimed, on the
+primary's energy; the timed solve then fuses each of their labelings into
+its result (each view into its own) at every layer, coarsest first (the
+fusion move), and, with one view, logs one more row.
 With ``-warmup 1`` a throwaway fusion on the warm-up solve's state comes
 first, so ``time.txt`` holds no first-use costs of the fusion path.
 
 Outputs: ``disp0.pfm``, ``time.txt`` and ``debug/`` with the per-sweep
-images and ``log_output.txt``.
+images and ``log_output.txt``; with ``-doDual 1`` also ``disp0raw.pfm``
+(view 0 before the post-process) and the consistency images
+``debug/result{0,1}C{index}.png`` after each sweep pair.
 
 Not taken yet, each refused with the ROADMAP item it waits for:
-``-mode MiddV2`` (A11), ``-doDual 1`` (A10), ``-volume mccnn`` (A13),
-``-volPrecision bfloat16``; ``-laneFriendly 1`` is TPU sizing and is never
-taken.
+``-mode MiddV2`` (A11), ``-volume mccnn`` (A13); ``-laneFriendly 1`` is TPU
+sizing and is never taken.
 """
 from __future__ import annotations
 
@@ -69,12 +73,8 @@ def _refuse_unported(ns) -> None:
     refused = [
         (ns.mode == "MiddV2", "-mode MiddV2 needs the V2 warp energy, "
                               "not ported yet (ROADMAP A11)"),
-        (ns.doDual != 0, "-doDual needs the second view and the "
-                         "post-process, not ported yet (ROADMAP A10)"),
         (ns.volume == "mccnn", "-volume mccnn needs the MC-CNN volume, not "
                                "ported yet (ROADMAP A13)"),
-        (ns.volPrecision == "bfloat16", "-volPrecision bfloat16 is not "
-                                        "ported; use uint8 or float32"),
         (ns.laneFriendly != 0, "-laneFriendly sizes layers for the TPU's "
                                "VMEM tiles; the port takes the reference "
                                "sizing only"),
@@ -117,9 +117,10 @@ def parse_args(argv: Optional[List[str]] = None) -> Options:
     _refuse_unported(ns)
 
     # -threadNum is accepted for parity with the JAX CLI and does nothing;
-    # -doDual 0 and -volume acrt are the only values taken.
+    # -volume acrt is the only value taken.
     return Options(
         mode=ns.mode, output_dir=ns.outputDir, target_dir=ns.targetDir,
+        do_dual=ns.doDual != 0,
         iterations=ns.iterations, pm_iterations=ns.pmIterations,
         ndisp=ns.ndisp, smooth_weight=ns.smooth_weight,
         mc_threshold=ns.mc_threshold, filter_radius=ns.filterRadious,
@@ -133,6 +134,7 @@ def print_options(opt: Options):
     print("----------- parameter settings -----------")
     for name, val in [("mode", opt.mode), ("outputDir", opt.output_dir),
                       ("targetDir", opt.target_dir),
+                      ("doDual", int(opt.do_dual)),
                       ("pmIterations", opt.pm_iterations),
                       ("iterations", opt.iterations), ("ndisp", opt.ndisp),
                       ("filterRadious", opt.filter_radius),
@@ -140,6 +142,7 @@ def print_options(opt: Options):
                       ("mc_threshold", opt.mc_threshold),
                       ("seed", opt.seed), ("fuseSeeds", opt.fuse_seeds),
                       ("unaryBackend", opt.unary_backend),
+                      ("volPrecision", opt.vol_precision),
                       ("device", opt.device)]:
         print(f"{name:<15}: {val}")
 
@@ -166,13 +169,18 @@ def _synchronize(solver: LocalExpansionSolver) -> None:
         torch.cuda.synchronize(solver.device)
 
 
+def view_modes(opt: Options):
+    return (0, 1) if opt.do_dual else (0,)
+
+
 def warm_up(solver: LocalExpansionSolver, opt: Options) -> None:
     """The counterpart of the JAX solver's ``precompile``: a throwaway
-    solve of the same problem with at most one sweep of each kind, before
-    the evaluator is set. It builds the kernel libraries and pays the
-    device's first-use costs, so ``time.txt`` measures the solve alone."""
+    solve of the same problem and views with at most one sweep of each
+    kind (and, with two views, the post-process), before the evaluator is
+    set. It builds the kernel libraries and pays the device's first-use
+    costs, so ``time.txt`` measures the solve alone."""
     t0 = time.perf_counter()
-    solver.run(iterations=min(opt.iterations, 1),
+    solver.run(iterations=min(opt.iterations, 1), view_modes=view_modes(opt),
                pm_iterations=min(opt.pm_iterations, 1))
     _synchronize(solver)
     print(f"warm-up solve in {time.perf_counter() - t0:.1f} s")
@@ -182,29 +190,35 @@ def solve_aux_seeds(solver: LocalExpansionSolver, opt: Options, make_aux):
     """-fuseSeeds N: solves seeds seed + 1 .. seed + N - 1 one after the
     other with the run's schedule, each on the primary solver's energy
     (the same energy; building it again would cost the host set-up once
-    per seed). Returns their [H, W, 4] labelings."""
+    per seed), on the run's views. Returns their ``{mode: [H, W, 4]
+    labeling}`` dicts (with two views, the post-processed labelings)."""
     solver.finalize()
+    modes = view_modes(opt)
     labelings = []
     for i in range(1, opt.fuse_seeds):
         t0 = time.perf_counter()
         aux = make_aux(opt.seed + i)
         aux.data, aux.cfg = solver.data, solver.cfg
-        labelings.append(aux.run(opt.iterations,
-                                 pm_iterations=opt.pm_iterations))
+        aux.run(opt.iterations, view_modes=modes,
+                pm_iterations=opt.pm_iterations)
+        labelings.append({m: aux._unpadded_labeling(m).clone()
+                          for m in modes})
         _synchronize(solver)
         print(f"fuseSeeds: solved auxiliary seed {opt.seed + i} in "
               f"{time.perf_counter() - t0:.1f} s")
     return labelings
 
 
-def warm_up_fusion(solver: LocalExpansionSolver, labeling) -> None:
-    """A throwaway fusion of ``labeling`` into the warm-up solve's state at
-    every layer: the first-use costs of the fusion path (the min-cut
-    kernel's build among them) before the timer, as the JAX CLI does."""
+def warm_up_fusion(solver: LocalExpansionSolver, labelings) -> None:
+    """A throwaway fusion of each view's labeling of ``labelings`` (a
+    ``{mode: labeling}`` dict) into the warm-up solve's state at every
+    layer: the first-use costs of the fusion path (the min-cut kernel's
+    build among them) before the timer, as the JAX CLI does."""
     t0 = time.perf_counter()
-    solver._fuse_layers(*init_from_labeling(solver.data, solver.cfg,
-                                            labeling, 0),
-                        0, tuple(reversed(range(len(solver.layers)))))
+    for mode, labeling in labelings.items():
+        solver._fuse_layers(*init_from_labeling(solver.data, solver.cfg,
+                                                labeling, mode),
+                            mode, tuple(reversed(range(len(solver.layers)))))
     _synchronize(solver)
     print(f"warm-up fusion in {time.perf_counter() - t0:.1f} s")
 
@@ -229,11 +243,14 @@ def _run(solver: LocalExpansionSolver, pair, opt: Options,
             warm_up_fusion(solver, fuse_with[0])
     solver.set_evaluator(ev)
     try:
-        labeling = solver.run(opt.iterations,
-                              pm_iterations=opt.pm_iterations,
-                              fuse_with=fuse_with)
+        labeling, raw = solver.run(opt.iterations, view_modes=view_modes(opt),
+                                   pm_iterations=opt.pm_iterations,
+                                   fuse_with=fuse_with)
         disp = plane_ops.disparity_map(labeling).cpu().numpy()
         pfm.write_pfm(os.path.join(out_dir, "disp0.pfm"), disp)
+        if opt.do_dual:
+            pfm.write_pfm(os.path.join(out_dir, "disp0raw.pfm"),
+                          plane_ops.disparity_map(raw).cpu().numpy())
         with open(os.path.join(out_dir, "time.txt"), "w") as f:
             f.write(f"{ev.get_current_time():f}\n")
     finally:

@@ -60,8 +60,8 @@ COST_FOR_INVALID = 1e6
 class Options:
     """Run-level options (reference ``main.cpp:14-70``; the JAX package's
     ``Options`` with ``device`` in place of its ``platform``, and without
-    the settings the port does not take yet: one view, the ``.acrt``
-    volume)."""
+    the settings the port does not take yet: the ``.acrt`` volume is the
+    only one)."""
 
     mode: str = ""  # "MiddV3" (MiddV2 is not ported yet)
     output_dir: str = ""
@@ -73,12 +73,15 @@ class Options:
     mc_threshold: float = 0.5
     filter_radius: int = 20
     seed: int = 0
+    #: -doDual 1: solve both views, then the left-right post-process
+    #: (consistency check, hole fill, weighted median).
+    do_dual: bool = False
     #: N > 1 (-fuseSeeds): solve N - 1 more seeds before the timed solve and
     #: fuse their labelings into its result (energy-best-of-N by the fusion
     #: move); 0 or 1 solve one seed.
     fuse_seeds: int = 0
     #: Cost-volume storage on the device: "uint8" (default; 256 levels over
-    #: [0, 2*mc_threshold]) or "float32" (-volPrecision).
+    #: [0, 2*mc_threshold]), "bfloat16" or "float32" (-volPrecision).
     vol_precision: str = "uint8"
     #: Unary route of the sweeps (-unaryBackend): "auto" (the plain
     #: sampler + guided filter) or "dma" (the fused sampling + filter

@@ -10,10 +10,11 @@
 // plane (a, b, c)) and window pixel (x, y) of the F x F window:
 //   d = a*gx + b*gy + c, dv = clip(d - min_disp, 0, D-1) (0 if d is not
 //   finite); the tent along d has two taps, floor(dv) and floor(dv)+1 (the
-//   upper one clamped at D-1), read straight from the padded volume; the
-//   uint8 decode q*scale + zero follows the 2-tap sum (the weights sum to
-//   1); a non-finite d gives COST_FOR_INVALID; the cost is truncated at
-//   th_col and is 0 outside the image.
+//   upper one clamped at D-1), read straight from the padded volume
+//   (uint8, bfloat16 or float32, widened to float32 exactly); the decode
+//   q*scale + zero follows the 2-tap sum (the weights sum to 1; a float
+//   volume has scale 1, zero 0); a non-finite d gives COST_FOR_INVALID;
+//   the cost is truncated at th_col and is 0 outside the image.
 // With r_gf > 0 the raw window p is then guided-filtered with the global
 // statistics (guide 3, mean 3, inverse covariance 6 channels) read at the
 // same pixels of their padded [Hp, Wp, C] arrays:
@@ -69,6 +70,7 @@
 // while the plane's disparity stays within one level, so a warp's 32 bytes
 // of a tap fall in one or two 32-byte sectors.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +85,8 @@ constexpr int kMaxWidth = 256;       // output columns of a tile at most
 constexpr int kMaxSmem = 232448;     // dynamic shared memory of one block
 constexpr int kSmemPerSm = 233472, kSmemReserved = 1024;
 constexpr float kCostForInvalid = 1e6f;
+// The volume's element type, as ops/unary_cuda.py::VOL_TYPES numbers it.
+enum VolType { kVolFloat32 = 0, kVolUint8 = 1, kVolBfloat16 = 2 };
 
 struct Geometry {
   int n, f, r;               // regions, window side, filter radius
@@ -140,6 +144,9 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const uint8_t* p) {
   return (float)(*p);
+}
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
 }
 
 // Offset of channel 0 of pixel (gx, gy) in a padded [Hp, Wp, C] array, the
@@ -502,14 +509,30 @@ const void* kernel_of(int r) {
   return r == 0 ? (const void*)raw_kernel<T> : (const void*)filter_kernel<T>;
 }
 
+// Calls fn(T{}) with T the element type of volume type `vol_type`;
+// cudaErrorInvalidValue for an unknown type.
+template <typename Fn>
+int with_vol_type(int vol_type, Fn&& fn) {
+  switch (vol_type) {
+    case kVolFloat32:
+      return fn(float{});
+    case kVolUint8:
+      return fn(uint8_t{});
+    case kVolBfloat16:
+      return fn(__nv_bfloat16{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Launches the kernel for one call on `stream`: tiles of tile_w x tile_h
 // output pixels (ops/unary_cuda.py::launch_plan; with r_gf = 0 tile_w must
-// be f). vol_u8 selects the volume type (uint8 or float32); with r_gf = 0
+// be f). vol_type is the volume's element type (VolType); with r_gf = 0
 // guide/mean/inv are not read. Returns the CUDA error code (0 on success).
 extern "C" int sample_windows_launch(
-    const void* vol, int vol_u8, const void* guide, const void* mean,
+    const void* vol, int vol_type, const void* guide, const void* mean,
     const void* inv, const void* props, const void* fox, const void* foy,
     void* out, int n, int f, int d, int hv, int wv, int vol_pad, int hp,
     int wp, int pad, int height, int width, float neg_min_disp,
@@ -520,35 +543,36 @@ extern "C" int sample_windows_launch(
   Geometry g{n, f, r_gf, d, hv, wv, vol_pad, hp, wp, pad, height, width,
              neg_min_disp, th_col, scale, zero, tile_w, tile_h};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (vol_u8) {
-    return launch<uint8_t>((const uint8_t*)vol, (const float*)guide,
-                           (const float*)mean, (const float*)inv,
-                           (const float*)props, (const int64_t*)fox,
-                           (const int64_t*)foy, (float*)out, g, s);
-  }
-  return launch<float>((const float*)vol, (const float*)guide,
-                       (const float*)mean, (const float*)inv,
-                       (const float*)props, (const int64_t*)fox,
-                       (const int64_t*)foy, (float*)out, g, s);
+  return with_vol_type(vol_type, [&](auto tag) {
+    using T = decltype(tag);
+    return launch<T>((const T*)vol, (const float*)guide, (const float*)mean,
+                     (const float*)inv, (const float*)props,
+                     (const int64_t*)fox, (const int64_t*)foy, (float*)out,
+                     g, s);
+  });
 }
 
-// Lets both filter kernels take the most dynamic shared memory a block
-// can have, on the current device; called once per device.
+// Lets the filter kernels of every volume type take the most dynamic
+// shared memory a block can have, on the current device; called once per
+// device.
 extern "C" int sample_windows_configure() {
-  cudaError_t err = cudaFuncSetAttribute(
-      filter_kernel<uint8_t>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaFuncSetAttribute(
-      filter_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+  for (int t = kVolFloat32; t <= kVolBfloat16; ++t) {
+    const int err = with_vol_type(t, [](auto tag) {
+      return (int)cudaFuncSetAttribute(
+          filter_kernel<decltype(tag)>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    });
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // The block of a plan (threads, dynamic shared memory) and the card's
 // answer for it: blocks an SM runs at once and registers a thread, for the
-// uint8 or float32 kernel of radius r (0: the raw kernel).
-extern "C" int sample_windows_occupancy(int vol_u8, int f, int r, int tile_w,
-                                        int* threads, int* smem_bytes,
+// kernel of volume type vol_type and radius r (0: the raw kernel).
+extern "C" int sample_windows_occupancy(int vol_type, int f, int r,
+                                        int tile_w, int* threads,
+                                        int* smem_bytes,
                                         int* blocks_per_sm, int* registers) {
   int t = kRawThreads;
   long long bytes = 0;
@@ -560,7 +584,12 @@ extern "C" int sample_windows_occupancy(int vol_u8, int f, int r, int tile_w,
       return (int)cudaErrorInvalidValue;
     }
   }
-  const void* k = vol_u8 ? kernel_of<uint8_t>(r) : kernel_of<float>(r);
+  const void* k = nullptr;
+  const int bad = with_vol_type(vol_type, [&](auto tag) {
+    k = kernel_of<decltype(tag)>(r);
+    return 0;
+  });
+  if (bad != 0) return bad;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, k);
   if (err != cudaSuccess) return (int)err;

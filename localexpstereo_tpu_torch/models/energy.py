@@ -34,7 +34,7 @@ class EnergyData(NamedTuple):
     gf_mean: torch.Tensor  # [V, Hp, Wp, 3]
     gf_inv: torch.Tensor   # [V, Hp, Wp, 6]
     coeff8: torch.Tensor   # [V, 8, Hp, Wp] pairwise weights (0 margin)
-    vol: torch.Tensor      # [V, D, Hv, Wv] cost volumes (uint8 or float)
+    vol: torch.Tensor      # [V, D, Hv, Wv] cost volumes (uint8, bf16, f32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,14 +74,16 @@ def build_energy(im0_bgr: np.ndarray, im1_bgr: np.ndarray,
                  vol_dtype: str = "uint8"):
     """Builds (EnergyData, EnergyConfig) for one stereo pair with cost
     volumes ([D, H, W] each), stored uint8-quantized (``vol_dtype``
-    "uint8", the JAX package's default) or as float32. Guide statistics are
+    "uint8", the JAX package's default), as bfloat16 (float32 rounded to
+    nearest even, as the JAX package's ``astype``) or as float32. Guide
+    statistics are
     computed on the host in float64 (``StereoEnergy.h:673-681``); the
     tensors then move to ``device`` (the card unless the caller asks for
     the CPU; see :func:`resolve_device`)."""
     device = resolve_device(device)
-    if vol_dtype not in ("uint8", "float32"):
+    if vol_dtype not in ("uint8", "bfloat16", "float32"):
         raise ValueError(f"vol_dtype {vol_dtype!r}: the port stores the "
-                         f"volume as uint8 or float32")
+                         f"volume as uint8, bfloat16 or float32")
     r = params.guided_radius
 
     def pad_hw(arr, axes):
@@ -109,6 +111,8 @@ def build_energy(im0_bgr: np.ndarray, im1_bgr: np.ndarray,
         vol_scale, vol_zero = 1.0, 0.0
     vp = int(vol_pad)
     vol = np.pad(stacked, ((0, 0), (0, 0), (vp, vp), (vp, vp)))
+    if vol_dtype == "bfloat16":
+        vol = torch.from_numpy(vol).to(torch.bfloat16)
 
     h, w = im0_bgr.shape[:2]
     cfg = EnergyConfig(width=w, height=h, pad=pad, params=params,
@@ -129,14 +133,24 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _to_data(guide, gf_mean, gf_inv, coeff8, vol, device) -> EnergyData:
-    def dev(x, dtype=None):
-        return torch.from_numpy(np.array(x, dtype)).to(device)
+def _volume_tensor(vol) -> torch.Tensor:
+    """A volume as a CPU tensor of its own dtype; a numpy bfloat16 array
+    (``ml_dtypes``' type, the JAX package's) is carried by its bits."""
+    if isinstance(vol, torch.Tensor):
+        return vol
+    vol = np.array(vol)
+    if vol.dtype.name == "bfloat16":
+        return torch.from_numpy(vol.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(vol)
 
-    return EnergyData(guide=dev(guide, np.float32),
-                      gf_mean=dev(gf_mean, np.float32),
-                      gf_inv=dev(gf_inv, np.float32),
-                      coeff8=dev(coeff8, np.float32), vol=dev(vol))
+
+def _to_data(guide, gf_mean, gf_inv, coeff8, vol, device) -> EnergyData:
+    def dev(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    return EnergyData(guide=dev(guide), gf_mean=dev(gf_mean),
+                      gf_inv=dev(gf_inv), coeff8=dev(coeff8),
+                      vol=_volume_tensor(vol).to(device))
 
 
 def energy_from_numpy(data, cfg, device="cuda"):

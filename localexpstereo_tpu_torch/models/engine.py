@@ -1,4 +1,4 @@
-"""The local-expansion move engine, single view, cost-volume energy
+"""The local-expansion move engine, one or both views, cost-volume energy
 (reference ``FastGCStereo`` + ``PMStereoBase``; counterpart of
 ``localexpstereo_tpu.models.engine``).
 
@@ -12,6 +12,9 @@ Schedule (``FastGCStereo.h:133-226``):
   fusion (optional, ``run(fuse_with=...)``): each external labeling's
   per-pixel unary, then one 16-color fusion sweep per layer, coarsest
   first (the reference's unused ``fusionMoveBK`` hook).
+  both views (``run(view_modes=(0, 1))``): each sweep on view 0, then on
+  view 1; then the left-right post-process (``PMStereoBase.h:146-256``,
+  :mod:`.postprocess`).
 
 One color set is processed as a batch: all its regions form a regular grid
 at stride 4s, every proposal of the plan is evaluated for all of them with
@@ -24,7 +27,7 @@ tensors in place (slice assignment).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +36,7 @@ from ..config import Parameters
 from ..ops import mincut, mincut_cuda, pairwise, rng, windows
 from ..ops import plane as plane_ops
 from . import energy as energy_mod
-from . import grid, proposals
+from . import grid, postprocess, proposals
 
 #: Layer proposer sets of the reference driver (``main.cpp:300-306``).
 LAYER0_PROPOSERS = ("expansion", "ransac", "random7")
@@ -317,7 +320,7 @@ def energy_audit(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
 
 class LocalExpansionSolver:
     """Host-side orchestration (the reference's ``FastGCStereo`` object)
-    for one view of a cost-volume (V3) problem.
+    for one or both views of a cost-volume (V3) problem.
 
     ``device`` holds every tensor of :class:`energy.EnergyData` and the
     padded state: the card (the default; building the energy raises
@@ -326,8 +329,8 @@ class LocalExpansionSolver:
     min-cut kernel, on the CPU their plain versions.
     ``unary_backend`` "dma" routes the sweeps' unary through the fused
     sampling + guided-filter kernel (its plain version on the CPU); "auto"
-    keeps the plain sampler. ``vol_dtype``: "uint8" or "float32" volume
-    storage.
+    keeps the plain sampler. ``vol_dtype``: "uint8", "bfloat16" or
+    "float32" volume storage.
     """
 
     def __init__(self, im0_bgr: np.ndarray, im1_bgr: np.ndarray,
@@ -356,8 +359,9 @@ class LocalExpansionSolver:
         self.data: Optional[energy_mod.EnergyData] = None
         self.cfg: Optional[energy_mod.EnergyConfig] = None
         self.layers: List[grid.Layer] = []
-        #: Padded (labeling_m [Hp, Wp, 4], cost_m [Hp, Wp]) of view 0.
-        self._state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        #: Padded (labeling_m [Hp, Wp, 4], cost_m [Hp, Wp]) by view.
+        self._state: Optional[Dict[int, Tuple[torch.Tensor,
+                                              torch.Tensor]]] = None
 
     def add_layer(self, unit_size: int, proposer_names: Sequence[str]):
         """cf. ``FastGCStereo::addLayer`` (``FastGCStereo.h:88-92``)."""
@@ -408,55 +412,89 @@ class LocalExpansionSolver:
 
     def run(self, iterations: int, view_modes: Sequence[int] = (0,),
             pm_iterations: int = 0, fuse_with=None):
-        """Full optimization of view 0 (cf. ``FastGCStereo::run``). Returns
-        the unpadded [H, W, 4] labeling as a tensor on the solver's device.
+        """Full optimization (cf. ``FastGCStereo::run``) of view 0, or of
+        both views with ``view_modes=(0, 1)`` (the JAX engine's default;
+        the port's is view 0 alone). Returns ``(final, raw)``, unpadded
+        [H, W, 4] labelings of view 0 on the solver's device: ``raw`` before
+        the dual-view post-process, ``final`` after it; a single-view run
+        returns the same tensor twice.
 
-        ``fuse_with``: external [H, W, 4] labelings (numpy or tensors, or
-        ``{0: labeling}`` dicts) fused into the solution after the
-        graph-cut sweeps, each at every layer, coarsest first: one
-        per-pixel unary evaluation of the labeling, one 16-color fusion
-        sweep per layer, then one more evaluator row at index
-        ``iterations + 1 + pm_iterations``. The energy ends no higher than
-        the plain solve's.
+        The views interleave as in the JAX engine: each sweep runs on view
+        0, then view 1, one key step a (sweep, view), and a dual run saves
+        the evaluator's consistency images after each sweep pair, where
+        the evaluator has ``save_consistency``.
+
+        ``fuse_with``: external labelings (numpy or tensors, applied to view
+        0) or ``{mode: labeling}`` dicts (applied to each view they name),
+        fused into the solution after the graph-cut sweeps, each at every
+        layer, coarsest first: one per-pixel unary evaluation of the
+        labeling, one 16-color fusion sweep per layer. A single-view run
+        then logs one more evaluator row, at index ``iterations + 1 +
+        pm_iterations``; its energy ends no higher than the plain solve's.
+
+        A dual run ends with :func:`postprocess.post_process` at threshold
+        1.5, writes both labelings back into the state and logs both views
+        at index ``iterations + 1 + pm_iterations``.
         """
-        if tuple(view_modes) != (0,):
-            raise NotImplementedError("the port solves view 0 only")
+        modes = tuple(view_modes)
+        if modes not in ((0,), (0, 1)):
+            raise ValueError(f"view_modes {view_modes!r}: (0,) or (0, 1)")
         self.finalize()
         root = rng.PRNGKey(self.seed)
-        mode = 0
-        self._state = init_step(self.data, self.cfg,
-                                rng.fold_in(root, 1000 + mode),
-                                unit_size=self.layers[0].unit_size, mode=mode)
-        self._evaluate(mode, 0)
+        self._state = {}
+        for mode in modes:
+            self._state[mode] = init_step(
+                self.data, self.cfg, rng.fold_in(root, 1000 + mode),
+                unit_size=self.layers[0].unit_size, mode=mode)
+            self._evaluate(mode, 0)
         if self.evaluator is not None:
             self.evaluator.start()
         step = 0
-        for it in range(pm_iterations):
-            self._sweep(self._state, mode, it, False,
-                        rng.fold_in(root, 2000 + step))
-            step += 1
-            self._evaluate(mode, it + 1)
-        for it in range(iterations):
-            self._sweep(self._state, mode, it, True,
-                        rng.fold_in(root, 3000 + step))
-            step += 1
-            self._evaluate(mode, it + 1 + pm_iterations)
+        for do_gc, base, sweeps, first in (
+                (False, 2000, pm_iterations, 1),
+                (True, 3000, iterations, 1 + pm_iterations)):
+            for it in range(sweeps):
+                for mode in modes:
+                    self._sweep(self._state[mode], mode, it, do_gc,
+                                rng.fold_in(root, base + step))
+                    step += 1
+                    self._evaluate(mode, it + first)
+                self._save_consistency(it + first)
+        last = iterations + 1 + pm_iterations
         if fuse_with:
             coarsest_first = tuple(reversed(range(len(self.layers))))
             for ext in fuse_with:
-                lab = ext.get(mode) if isinstance(ext, dict) else ext
-                if lab is None:
-                    continue
-                self._fuse_layers(*init_from_labeling(self.data, self.cfg,
-                                                      lab, mode),
-                                  mode, coarsest_first)
-            self._evaluate(mode, iterations + 1 + pm_iterations)
+                for mode in modes:
+                    lab = (ext.get(mode) if isinstance(ext, dict)
+                           else ext if mode == 0 else None)
+                    if lab is None:
+                        continue
+                    self._fuse_layers(*init_from_labeling(
+                        self.data, self.cfg, lab, mode), mode,
+                        coarsest_first)
+            if len(modes) == 1:
+                self._evaluate(0, last)
+        final = raw = self._unpadded_labeling(0)
+        if len(modes) == 2:
+            raw = raw.clone()
+            labs = postprocess.post_process(
+                raw, self._unpadded_labeling(1), self.im0, self.im1,
+                self.params, threshold=1.5)
+            for mode, lab in zip(modes, labs):
+                # As the JAX engine's _set_unpadded_labeling: the labeling
+                # is replaced and the pre-process unary costs are kept, so
+                # the last row's energy is the old data sum plus the
+                # smoothness of the post-processed labeling.
+                self._unpadded_labeling(mode).copy_(lab)
+            final = labs[0]
+            for mode in modes:
+                self._evaluate(mode, last)
         if self.evaluator is not None:
             self.evaluator.stop()
-        return self._unpadded_labeling()
+        return final, raw
 
     def fuse(self, labeling, mode: int = 0, layer_index: int = 0):
-        """Fuses an external [H, W, 4] labeling into the solution of a
+        """Fuses an external [H, W, 4] labeling into view ``mode`` of a
         completed :meth:`run` with one 16-color fusion sweep at one layer
         (the reference's unused ``fusionMoveBK`` hook,
         ``FastGCStereo.h:241-410``): each region's min-cut chooses per
@@ -467,12 +505,12 @@ class LocalExpansionSolver:
         self._fuse_layers(*init_from_labeling(self.data, self.cfg, labeling,
                                               mode),
                           mode, (layer_index,))
-        return self._unpadded_labeling()
+        return self._unpadded_labeling(mode)
 
     def _fuse_layers(self, ext_lab_m, ext_cost_m, mode: int, layer_indices):
         """Fusion sweeps of the state against an evaluated external state
         (from :func:`init_from_labeling`) at each listed layer."""
-        labeling_m, cost_m = self._state
+        labeling_m, cost_m = self._state[mode]
         dev = labeling_m.device
         for li in layer_indices:
             layer = self.layers[li]
@@ -488,16 +526,22 @@ class LocalExpansionSolver:
                     unit_size=layer.unit_size, nbx=layer.nbx, nby=layer.nby,
                     mode=mode)
 
-    def _unpadded_labeling(self):
+    def _unpadded_labeling(self, mode: int = 0) -> torch.Tensor:
+        """View ``mode``'s [H, W, 4] labeling, a view into the state."""
         p = self.cfg.pad
-        return self._state[0][p:p + self.cfg.height, p:p + self.cfg.width]
+        return self._state[mode][0][p:p + self.cfg.height,
+                                    p:p + self.cfg.width]
 
     def _evaluate(self, mode, index):
         if self.evaluator is not None:
-            self.evaluator.evaluate(self, *self._state, mode=mode,
+            self.evaluator.evaluate(self, *self._state[mode], mode=mode,
                                     index=index)
 
-    def disparity_map(self) -> torch.Tensor:
-        """[H, W] disparity of view 0 after :meth:`run`."""
-        return plane_ops.disparity_map(self._unpadded_labeling())
+    def _save_consistency(self, index):
+        save = getattr(self.evaluator, "save_consistency", None)
+        if save is not None and len(self._state) == 2:
+            save(self, self._state, index)
 
+    def disparity_map(self, mode: int = 0) -> torch.Tensor:
+        """[H, W] disparity of view ``mode`` after :meth:`run`."""
+        return plane_ops.disparity_map(self._unpadded_labeling(mode))

@@ -5,7 +5,8 @@ After every sweep it audits the energy (smoothness recomputed from scratch +
 stored unary sum), computes bad-pixel rates against ground truth at the
 configured threshold, appends a TSV row ``Time  Eng  Data  Smooth  all
 nonocc`` to ``log_output.txt`` (``Evaluator.h:60-65,168-172``), saves
-disparity / normal / error debug images through :mod:`..utils.png`, and
+disparity / normal / error debug images through :mod:`..utils.png` (and a
+dual run's consistency images, :meth:`Evaluator.save_consistency`), and
 keeps the pausable optimization timer excluded from its own run time
 (``Evaluator.h:113-116,185-186``). On a CUDA device it synchronizes the card
 before stopping the timer, so the solve's queued work counts as solve time.
@@ -21,6 +22,7 @@ import torch
 from ..ops import plane as plane_ops
 from ..utils import png
 from ..utils.timing import TimeStamper
+from . import postprocess
 
 
 class Evaluator:
@@ -146,6 +148,36 @@ class Evaluator:
             png.write(os.path.join(
                 self.save_dir, f"{self.HEADER}{mode}E{index:02d}.png"),
                 err_vis.astype(np.uint8))
+
+    def save_consistency(self, solver, state, index: int):
+        """The left-right consistency images of a dual run
+        (``viewConsistencyCheck``, ``PMStereoBase.h:87-108``; saved after
+        each sweep pair, ``FastGCStereo.h:160-168``):
+        ``result{mode}C{index}.png``, the view's disparity in gray with
+        channel 0 (blue) at 255 where the lookup left the image (fail 128)
+        and channel 2 (red) at 255 where the views disagree (fail 255), at
+        the post-process's threshold 1.5. Outside the optimization time."""
+        was_ticking = self.timer.is_ticking()
+        if state[0][1].is_cuda:
+            torch.cuda.synchronize(state[0][1].device)
+        self.stop()
+        cfg = solver.cfg
+        p = cfg.pad
+        disps = [plane_ops.disparity_map(
+            state[mode][0][p:p + cfg.height, p:p + cfg.width])
+            for mode in (0, 1)]
+        fails = postprocess.consistency_check(disps[0], disps[1], 1.5)
+        for mode, (disp, fail) in enumerate(zip(disps, fails)):
+            vis = np.clip(disp.cpu().numpy() * self.disparity_factor, 0,
+                          255).astype(np.uint8)
+            img = np.stack([vis] * 3, -1)
+            f = fail.cpu().numpy()
+            img[f == 128, 0] = 255
+            img[f == 255, 2] = 255
+            png.write(os.path.join(
+                self.save_dir, f"{self.HEADER}{mode}C{index:02d}.png"), img)
+        if was_ticking:
+            self.start()
 
     # ------------------------------------------------------------- timer --
 

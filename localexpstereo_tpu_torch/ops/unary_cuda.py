@@ -29,6 +29,10 @@ from . import cuda_build, guided, unary_volume
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
+#: The volume's element types the kernel takes, by the number the source
+#: gives each (``VolType`` in ``csrc/sample_windows.cu``).
+VOL_TYPES = {torch.float32: 0, torch.uint8: 1, torch.bfloat16: 2}
+
 
 # ------------------------------------------------------------ plain version --
 
@@ -235,26 +239,28 @@ def configured(device: int) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def occupancy(f: int, r: int, width: int):
-    """The card's answer for the uint8 kernel's tiles ``width`` wide:
-    (threads, shared-memory bytes, blocks an SM runs at once, registers a
-    thread)."""
+def occupancy(f: int, r: int, width: int, vol_type: int = 1):
+    """The card's answer for the kernel's tiles ``width`` wide on a volume
+    of type ``vol_type`` (:data:`VOL_TYPES`; uint8 by default): (threads,
+    shared-memory bytes, blocks an SM runs at once, registers a thread)."""
     lib = configured(torch.cuda.current_device())
     out = [ctypes.c_int(0) for _ in range(4)]
-    rc = lib.sample_windows_occupancy(1, f, r, width,
+    rc = lib.sample_windows_occupancy(vol_type, f, r, width,
                                       *(ctypes.byref(v) for v in out))
     cuda_build.launch_error("sample_windows occupancy", rc)
     return tuple(v.value for v in out)
 
 
 @functools.lru_cache(maxsize=None)
-def card_plan(f: int, n: int, r: int) -> Plan:
+def card_plan(f: int, n: int, r: int, vol_type: int = 1) -> Plan:
     """:func:`launch_plan` with the card's answer for how many blocks an SM
-    runs, asked once per (F, N, r): the port's cards are of one type.
-    Raises if the kernel's block differs from the plan's or the card
-    cannot run it."""
+    runs, asked once per (F, N, r, volume type): the port's cards are of
+    one type. The volume's type changes no block (the shared memory holds
+    float32 and float64 values), only, possibly, the registers. Raises if
+    the kernel's block differs from the plan's or the card cannot run
+    it."""
     def per_sm(plan):
-        threads, smem, blocks, _ = occupancy(f, r, plan.width)
+        threads, smem, blocks, _ = occupancy(f, r, plan.width, vol_type)
         if (threads, smem) != (plan.threads, plan.smem_bytes):
             raise RuntimeError(f"sample_windows: the kernel's block "
                                f"({threads}, {smem}) is not {plan}")
@@ -265,11 +271,11 @@ def card_plan(f: int, n: int, r: int) -> Plan:
     return plan
 
 
-def describe(f: int, n: int, r: int) -> dict:
+def describe(f: int, n: int, r: int, vol_type: int = 1) -> dict:
     """The plan at (F, N, r) with the card's blocks an SM and registers:
     what the unary phase of ``chip_smoke.py`` prints."""
-    plan = card_plan(f, n, r)
-    _, _, per_sm, regs = occupancy(f, r, plan.width)
+    plan = card_plan(f, n, r, vol_type)
+    _, _, per_sm, regs = occupancy(f, r, plan.width, vol_type)
     return {"W": plan.width, "Hc": plan.rows, "threads": plan.threads,
             "smem_bytes": plan.smem_bytes, "blocks": plan.blocks(f, n),
             "blocks_per_sm": per_sm, "registers": regs}
@@ -285,8 +291,9 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
     when ``r_gf > 0``.
 
     Args:
-      vol: [D, Hv, Wv] uint8 or float32 volume, image pixel (x, y) at
-        ``[:, y + vol_pad, x + vol_pad]`` (any trailing padding is fine).
+      vol: [D, Hv, Wv] uint8, bfloat16 or float32 volume, image pixel
+        (x, y) at ``[:, y + vol_pad, x + vol_pad]`` (any trailing padding
+        is fine); values widen to float32 exactly before the tent sum.
       proposals: [N, 4] float32 planes; fox, foy: [N] integer window
         origins in image coordinates (may be negative).
       size: window side F; height, width: the image.
@@ -310,9 +317,12 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
             stats=stats, pad=pad, r_gf=r_gf)
     if dev.type != "cuda":
         raise ValueError(f"sample_windows: unsupported device {dev}")
+    if vol.dtype not in VOL_TYPES:
+        raise TypeError(f"vol: expected {tuple(VOL_TYPES)}, got {vol.dtype}")
     n = proposals.shape[0]
     with torch.cuda.device(dev):
-        plan = card_plan(int(size), n, int(r_gf)) if n else None
+        plan = (card_plan(int(size), n, int(r_gf), VOL_TYPES[vol.dtype])
+                if n else None)
         return launch_windows(
             vol, vol_pad, proposals, fox, foy, size, height, width,
             min_disp=min_disp, th_col=th_col, scale=scale, zero=zero,
@@ -329,8 +339,7 @@ def launch_windows(vol, vol_pad, proposals, fox, foy, size, height, width,
     dev = proposals.device
     n = proposals.shape[0]
     f32 = (torch.float32,)
-    cuda_build.check("vol", vol, dev, (torch.uint8, torch.float32),
-                     (None, None, None))
+    cuda_build.check("vol", vol, dev, tuple(VOL_TYPES), (None, None, None))
     cuda_build.check("proposals", proposals, dev, f32, (n, 4))
     if n > 65535:
         raise ValueError(f"sample_windows: {n} regions exceed the grid")
@@ -350,7 +359,7 @@ def launch_windows(vol, vol_pad, proposals, fox, foy, size, height, width,
         ptrs = [a.data_ptr() for a in stats]
     d_, hv, wv = vol.shape
     rc = configured(dev.index).sample_windows_launch(
-        vol.data_ptr(), int(vol.dtype == torch.uint8), *ptrs,
+        vol.data_ptr(), VOL_TYPES[vol.dtype], *ptrs,
         proposals.data_ptr(), fox64.data_ptr(), foy64.data_ptr(),
         out.data_ptr(), n, int(size), d_, hv, wv, int(vol_pad), hp, wp,
         int(pad), int(height), int(width), float(-min_disp), float(th_col),

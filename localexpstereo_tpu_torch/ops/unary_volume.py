@@ -25,7 +25,8 @@ def sample_windows_aligned(vol: torch.Tensor, vol_pad: int,
     """Raw matching cost of each proposal over its F x F window.
 
     Args:
-      vol: [D, Hv, Wv] volume (float or uint8), spatially zero-padded by
+      vol: [D, Hv, Wv] volume (float32, bfloat16 or uint8; widened to
+        float32 exactly before the tent sum), spatially zero-padded by
         ``vol_pad``: image pixel (x, y) is ``vol[:, y + vol_pad, x + vol_pad]``.
       proposals: [N, 4]; fox, foy: [N] global window origins (may be < 0).
       scale, zero: uint8 decode ``q * scale + zero``, applied after the

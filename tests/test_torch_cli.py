@@ -163,15 +163,25 @@ def test_flags_and_spellings():
 
 @pytest.mark.parametrize("flags,item", [
     (["-mode", "MiddV2"], "A11"),
-    (["-doDual", "1"], "A10"),
-    (["-fuseSeeds", "3", "-doDual", "1"], "A10"),
     (["-volume", "mccnn"], "A13"),
-    (["-volPrecision", "bfloat16"], "bfloat16"),
     (["-laneFriendly", "1"], "laneFriendly"),
 ])
 def test_unported_flags_fail_loudly(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         tcli.parse_args(["-mode", "MiddV3", *flags])
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["-doDual", "1"], "do_dual", True),
+    (["-fuseSeeds", "3", "-doDual", "1"], "do_dual", True),
+    (["-volPrecision", "bfloat16"], "vol_precision", "bfloat16"),
+])
+def test_ported_flags_are_taken(flags, field, value):
+    """The flags the port once refused (the two views, A10; the bfloat16
+    volume) are taken now."""
+    opt = tcli.parse_args(["-mode", "MiddV3", *flags])
+    assert getattr(opt, field) == value
+    assert tcli.parse_args(["-mode", "MiddV3"]).do_dual is False
 
 
 def test_usage_without_mode(capsys):

@@ -135,12 +135,13 @@ def test_mincut_kernel_forced_plans(cuda, case):
 def test_card_plans_match_the_recorded_ones(cuda, kernel):
     """The card's answer for how many clusters (or unary blocks) fit leads
     to the plans that launch_plan gives without it at the main path's
-    shapes."""
+    shapes (for sample_windows, on every volume type)."""
     if kernel == "sample_windows":
         for f, n in ((62, 468), (149, 54), (407, 6)):
             for r in (0, 10):
-                assert unary_cuda.card_plan(f, n, r) == \
-                    unary_cuda.launch_plan(f, n, r)
+                for vol_type in unary_cuda.VOL_TYPES.values():
+                    assert unary_cuda.card_plan(f, n, r, vol_type) == \
+                        unary_cuda.launch_plan(f, n, r)
         return
     for s, n in ((42, 468), (129, 54), (387, 6)):
         assert mincut_cuda.card_plan(kernel, s, n) == \
@@ -154,9 +155,13 @@ def _unary_check(cuda, dtype, n, f, d, r, h, w, plan=None):
     those positions whose values are bitwise equal."""
     vp = 12
     vol, props, fox, foy, stats, scale, th = \
-        synthetic.unary_window_problem(np.random.default_rng(n + f), n, f,
-                                       d, h, w, vp, dtype)
-    args = (torch.as_tensor(vol, device=cuda), vp,
+        synthetic.unary_window_problem(
+            np.random.default_rng(n + f), n, f, d, h, w, vp,
+            "float32" if dtype == "bfloat16" else dtype)
+    vol = torch.as_tensor(vol, device=cuda)
+    if dtype == "bfloat16":
+        vol = vol.to(torch.bfloat16)
+    args = (vol, vp,
             torch.as_tensor(props, device=cuda),
             torch.as_tensor(fox, device=cuda),
             torch.as_tensor(foy, device=cuda), f, h, w)
@@ -185,7 +190,7 @@ def _unary_check(cuda, dtype, n, f, d, r, h, w, plan=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8", "bfloat16"])
 @pytest.mark.parametrize("n,f,d,r", [
     (5, 7, 6, 0), (17, 9, 12, 0), (9, 11, 6, 3), (20, 62, 24, 10),
 ])
@@ -194,7 +199,7 @@ def test_unary_kernel_matches_plain(cuda, dtype, n, f, d, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8", "bfloat16"])
 @pytest.mark.parametrize("f", [149, 407])
 def test_unary_kernel_main_path_sizes(cuda, dtype, f):
     """The main path's middle and widest windows (N = 2, r = 10) on an
@@ -253,7 +258,7 @@ def test_solve_on_card_matches_cpu(cuda, windr, route):
                     solver.data, solver.cfg, lab, cost, mode)[0]))
 
         solver.set_evaluator(Rec())
-        lab = solver.run(iterations=2, pm_iterations=1)
+        lab, _ = solver.run(iterations=2, pm_iterations=1)
         assert lab.device.type == device.type
         energies[device.type] = out
     launched = unary_cuda.sample_windows.launches - launches

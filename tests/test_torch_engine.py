@@ -108,7 +108,8 @@ def solves():
     assert all(teng.mincut_knobs(3 * s) == (16, 16) for s in LAYERS)
     trec = _Recorder(teng.energy_audit)
     ts.set_evaluator(trec)
-    tlab = ts.run(iterations=GC, pm_iterations=PM)
+    tlab, raw = ts.run(iterations=GC, pm_iterations=PM)
+    assert raw is tlab
     return dict(js=js, ts=ts, jrec=jrec, trec=trec, truth=truth,
                 jlab=np.asarray(jlab), tlab=tlab.numpy())
 
@@ -189,7 +190,7 @@ def dma_solves():
                                                 device="cpu")
     trec = _Recorder(teng.energy_audit)
     ts.set_evaluator(trec)
-    tlab = ts.run(iterations=1, pm_iterations=1)
+    tlab, _ = ts.run(iterations=1, pm_iterations=1)
     assert ts.cfg.unary_backend == "dma"
     return dict(jrec=jrec, trec=trec, truth=truth, jlab=np.asarray(jlab),
                 tlab=tlab.numpy())
@@ -237,7 +238,7 @@ def test_port_runs_without_jax(tmp_path):
             img, img, PARAMS_GF.replace(windR=6, lambda_=0.5, th_col=0.5),
             max_disp=float(nd - 1), vol0=vol, vol1=vol, device="cpu")
         s.add_layer(16, engine.COARSE_PROPOSERS)
-        lab = s.run(iterations=1, pm_iterations=0)
+        lab, _ = s.run(iterations=1, pm_iterations=0)
         assert lab.shape == (h, w, 4) and bool(torch.isfinite(lab).all())
         assert not any(m == "jax" or m.startswith(("jax.", "localexpstereo_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)

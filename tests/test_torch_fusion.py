@@ -366,7 +366,7 @@ def test_fuse_adopts_oracle_and_is_idempotent():
 
     def energy():
         return float(teng.energy_audit(solver.data, solver.cfg,
-                                       *solver._state, 0)[0])
+                                       *solver._state[0], 0)[0])
 
     e_before = energy()
     cur = solver._unpadded_labeling().clone()
