@@ -63,7 +63,7 @@ class Options:
     the settings the port does not take yet: the ``.acrt`` volume is the
     only one)."""
 
-    mode: str = ""  # "MiddV3" (MiddV2 is not ported yet)
+    mode: str = ""  # "MiddV2" or "MiddV3"
     output_dir: str = ""
     target_dir: str = ""
     iterations: int = 5

@@ -1,6 +1,6 @@
-"""The local-expansion move engine, one or both views, cost-volume energy
-(reference ``FastGCStereo`` + ``PMStereoBase``; counterpart of
-``localexpstereo_tpu.models.engine``).
+"""The local-expansion move engine, one or both views, on the cost-volume
+(V3) or the image-warp (V2) energy (reference ``FastGCStereo`` +
+``PMStereoBase``; counterpart of ``localexpstereo_tpu.models.engine``).
 
 Schedule (``FastGCStereo.h:133-226``):
 
@@ -122,9 +122,9 @@ def _color_body(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
     live = tmask & rmask[:, None, None]
     # Proposal-independent per color step (the Reusable cache,
     # StereoEnergy.h:616-626): statistic windows and pairwise weights. The
-    # "dma" route cuts no statistic windows: its kernel reads the
+    # fused unary route cuts no statistic windows: its kernel reads the
     # statistics itself.
-    stat_windows = (None if cfg.unary_backend == "dma" else
+    stat_windows = (None if energy_mod.fused_unary(cfg) else
                     energy_mod.dense_filter_windows(
                         data, cfg, mode, ox, oy, cox + s, coy + s, nby, nbx,
                         t4, -s, ss))
@@ -152,7 +152,7 @@ def _color_body(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
         props = props.contiguous()
 
         pcost = energy_mod.unary_windows(data, cfg, mode, props, ox, oy, -s,
-                                         ss, stat_windows)
+                                         ss, stat_windows, clamp_slabs=False)
         ccost = windows.dense_windows(cost_m, coy + p, cox + p, nby, nbx,
                                       t4, ss).contiguous()
         if do_gc:
@@ -320,22 +320,25 @@ def energy_audit(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
 
 class LocalExpansionSolver:
     """Host-side orchestration (the reference's ``FastGCStereo`` object)
-    for one or both views of a cost-volume (V3) problem.
+    for one or both views of a stereo pair: with cost volumes ``vol0`` and
+    ``vol1`` on the V3 energy, without them on the V2 image-warp energy
+    (``max_vdisp`` > 0 lets planes shift the other view vertically too).
 
     ``device`` holds every tensor of :class:`energy.EnergyData` and the
     padded state: the card (the default; building the energy raises
     without one) or, when asked, the CPU. On a CUDA device the graph-cut
     sweeps run the hand-written expansion kernel and the fusion sweeps the
     min-cut kernel, on the CPU their plain versions.
-    ``unary_backend`` "dma" routes the sweeps' unary through the fused
+    ``unary_backend`` "dma" routes the V3 sweeps' unary through the fused
     sampling + guided-filter kernel (its plain version on the CPU); "auto"
-    keeps the plain sampler. ``vol_dtype``: "uint8", "bfloat16" or
-    "float32" volume storage.
+    keeps the plain sampler; the V2 energy has the warp sampler on either.
+    ``vol_dtype``: "uint8", "bfloat16" or "float32" volume storage.
     """
 
     def __init__(self, im0_bgr: np.ndarray, im1_bgr: np.ndarray,
-                 params: Parameters, max_disp: float, vol0: np.ndarray,
-                 vol1: np.ndarray, min_disp: float = 0.0,
+                 params: Parameters, max_disp: float,
+                 vol0: Optional[np.ndarray] = None,
+                 vol1: Optional[np.ndarray] = None, min_disp: float = 0.0,
                  max_vdisp: float = 0.0, seed: int = 0, device="cuda",
                  unary_backend: str = "auto", vol_dtype: str = "uint8"):
         if unary_backend not in ("auto", "dma"):

@@ -1,10 +1,16 @@
-"""Synthetic V3 stereo problem with a planted disparity truth.
+"""Synthetic stereo problems with a planted disparity truth.
 
 A numpy copy of the benchmark problem of the JAX package (``bench.py``'s
 ``build_problem``): a piecewise-slanted-plane disparity field made of a few
 random planes, and a cost volume with a linear basin around the truth plus
 noise. At scale 1.0 it is 1436 x 992 with 145 disparities, half the
 Middlebury V3 full resolution.
+
+:func:`v2_scene` is a V2 (image-based) scene: a textured left view and a
+right view rendered from planted slanted planes with a depth test, so it
+has real occlusions; :func:`write_v2_scene` writes it as a Middlebury V2
+directory (``imL/imR.png``, ``groundtruth.png``, ``nonocc.png``,
+``info.txt``), at the cones size (450 x 375, 60 disparities) by default.
 
 :func:`fused_move_problem` and :func:`fusion_move_problem` make random
 inputs of one fused expansion move and of one fusion move, for holding the
@@ -179,8 +185,123 @@ def unary_windows(solver, truth: np.ndarray, layer, rng: np.random.Generator):
     b = rng.uniform(-0.02, 0.02, n)
     c = truth[cy, cx] + rng.uniform(-0.5, 0.5, n) - a * cx - b * cy
     props = np.stack([a, b, c, np.zeros(n)], -1).astype(np.float32)
-    dev = solver.data.vol.device
+    dev = solver.data.coeff8.device
     return (torch.as_tensor(props, device=dev),
             torch.as_tensor((ox - s - r).astype(np.int64), device=dev),
             torch.as_tensor((oy - s - r).astype(np.int64), device=dev),
             3 * s + 2 * r)
+
+
+def v2_scene(h: int = 375, w: int = 450, ndisp: int = 60, seed: int = 0):
+    """A V2 stereo pair with planted slanted planes.
+
+    The left view's disparity is a background plane with a few nearer
+    slanted planes in front of it (ellipses), all within [2, ndisp - 3].
+    The left image is a random texture (blurred noise, per channel). The
+    right view is rendered from the planes: its pixel (xr, y) shows the
+    nearest plane that maps a left pixel of that plane's own region onto
+    it (x - d(x, y) = xr), sampled there bilinearly from the left image; a
+    pixel no plane reaches (seen by the right camera only) gets texture of
+    its own. Returns (imL, imR [h, w, 3] uint8 BGR, disparity [h, w]
+    float32 of the left view, nonocc [h, w] bool: the left pixels the
+    right view sees)."""
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    lo, hi = 2.0, ndisp - 3.0
+    planes = [(rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02), 0.0)]
+    planes[0] = planes[0][:2] + (lo + 0.2 * (hi - lo)
+                                 - planes[0][0] * w / 2
+                                 - planes[0][1] * h / 2,)
+    label = np.zeros((h, w), np.int64)
+    for i in range(1, 5):
+        cx, cy = rng.uniform(0.15, 0.85) * w, rng.uniform(0.15, 0.85) * h
+        rx, ry = rng.uniform(0.1, 0.25) * w, rng.uniform(0.1, 0.25) * h
+        a, b = rng.uniform(-0.08, 0.08), rng.uniform(-0.08, 0.08)
+        dc = lo + (0.35 + 0.15 * i) * (hi - lo)
+        planes.append((a, b, dc - a * cx - b * cy))
+        label[((xs - cx) / rx) ** 2 + ((ys - cy) / ry) ** 2 < 1.0] = i
+    planes = np.asarray(planes)
+    disp_of = [pl[0] * xs + pl[1] * ys + pl[2] for pl in planes]
+    disp = np.clip(np.choose(label, disp_of), lo, hi)
+
+    def texture(shape):
+        t = rng.random(shape)
+        for _ in range(2):
+            t = (t + np.roll(t, 1, 0) + np.roll(t, 1, 1)
+                 + np.roll(t, (1, 1), (0, 1))) / 4.0
+        return 30.0 + 195.0 * (t - t.min()) / (t.max() - t.min())
+
+    left = texture((h, w, 3))
+    best = np.full((h, w), -np.inf)
+    src = np.zeros((h, w))
+    for i, (a, b, c) in enumerate(planes):
+        # x - (a x + b y + c) = xr, the left pixel of plane i seen at xr.
+        x = (xs + b * ys + c) / (1.0 - a)
+        d = np.clip(a * x + b * ys + c, lo, hi)
+        xi = np.rint(x).astype(np.int64)
+        inside = (x >= 0) & (x <= w - 1)
+        own = inside & (label[ys.astype(np.int64), np.clip(xi, 0, w - 1)]
+                        == i)
+        near = own & (d > best)
+        best = np.where(near, d, best)
+        src = np.where(near, x, src)
+    seen = np.isfinite(best)
+    x0 = np.clip(np.floor(src).astype(np.int64), 0, w - 1)
+    x1 = np.clip(x0 + 1, 0, w - 1)
+    fx = (src - np.floor(src))[..., None]
+    yi = ys.astype(np.int64)
+    right = (1 - fx) * left[yi, x0] + fx * left[yi, x1]
+    right = np.where(seen[..., None], right, texture((h, w, 3)))
+
+    xr = np.rint(xs - disp).astype(np.int64)
+    in_view = (xr >= 0) & (xr <= w - 1)
+    front = best[yi, np.clip(xr, 0, w - 1)]
+    nonocc = in_view & (disp >= front - 0.5)
+    left, right = (np.clip(np.rint(im), 0, 255).astype(np.uint8)
+                   for im in (left, right))
+    return left, right, disp.astype(np.float32), nonocc
+
+
+def write_v2_scene(target, h: int = 375, w: int = 450, ndisp: int = 60,
+                   seed: int = 0):
+    """Writes :func:`v2_scene` as a Middlebury V2 directory at ``target``
+    (created): ``imL.png``, ``imR.png``, ``groundtruth.png`` (disparity x 4,
+    rounded), ``nonocc.png`` (255 where the right view sees the pixel, 0
+    elsewhere) and ``info.txt`` ("4 {ndisp}"). Returns the disparity
+    [h, w] float32 that ``groundtruth.png`` holds (quarter-pixel steps)."""
+    import os
+
+    from . import png
+    im_l, im_r, disp, nonocc = v2_scene(h, w, ndisp, seed)
+    os.makedirs(target)
+    png.write(os.path.join(target, "imL.png"), im_l)
+    png.write(os.path.join(target, "imR.png"), im_r)
+    gt = np.clip(np.rint(disp * 4.0), 1, 255).astype(np.uint8)
+    png.write(os.path.join(target, "groundtruth.png"), gt)
+    png.write(os.path.join(target, "nonocc.png"),
+              np.where(nonocc, 255, 0).astype(np.uint8))
+    with open(os.path.join(target, "info.txt"), "w") as f:
+        f.write(f"4 {ndisp}\n")
+    return gt.astype(np.float32) / 4.0
+
+
+def v2_solver(h: int, w: int, ndisp: int, device: str, sizes=None,
+              windr: int = 20, max_vdisp: float = 0.0, seed: int = 0):
+    """The port's solver of :func:`v2_scene` (h, w, ndisp) on ``device``,
+    on the V2 image-warp energy: PARAMS_GF with windR ``windr`` and the
+    MiddV2 mode's smooth weight 1.0, the mode's layers {5, 15, 25} unless
+    ``sizes`` are given, and ``max_vdisp``. Returns (solver, disparity
+    truth [h, w], nonocc [h, w], sizes)."""
+    from ..config import PARAMS_GF
+    from ..models import engine
+    im_l, im_r, truth, nonocc = v2_scene(h, w, ndisp)
+    solver = engine.LocalExpansionSolver(
+        im_l.astype(np.float32), im_r.astype(np.float32),
+        PARAMS_GF.replace(windR=windr, lambda_=1.0),
+        max_disp=float(ndisp - 1), max_vdisp=max_vdisp, seed=seed,
+        device=device)
+    sizes = list(sizes or (5, 15, 25))
+    for i, sz in enumerate(sizes):
+        solver.add_layer(sz, engine.LAYER0_PROPOSERS if i == 0
+                         else engine.COARSE_PROPOSERS)
+    return solver, truth, nonocc, sizes

@@ -1,5 +1,5 @@
-"""The port's command line (MiddV3 mode) against the JAX package's, and its
-host-side codecs against the JAX copies and OpenCV.
+"""The port's command line against the JAX package's, and its host-side
+codecs against the JAX copies and OpenCV.
 
 One synthetic MiddV3 directory (40 x 72, 12 disparities; PNG images,
 ``calib.txt``, ``im0.acrt`` and ``disp0GT.pfm``) is solved once by the JAX
@@ -9,7 +9,8 @@ plain version). Layers {1%, 3%, 9%} of the width = [1, 2, 6], 1 greedy + 2
 graph-cut sweeps. The JAX side's min-cut knobs are set to the port's
 (16, 16) for these windows; its CPU defaults differ. Tolerances: the
 energy trajectory within 0.002·|E| + 1e-3 per row of ``log_output.txt``,
-bad rates of ``disp0.pfm`` within 0.5 pt.
+bad rates of ``disp0.pfm`` within 0.5 pt. A written MiddV2 directory is
+solved with ``-doDual 1`` by both (``test_cli_midv2_do_dual_matches_jax``).
 """
 import dataclasses
 import os
@@ -30,7 +31,7 @@ from localexpstereo_tpu.utils import acrt as jacrt
 from localexpstereo_tpu.utils import calib as jcalib
 from localexpstereo_tpu.utils import pfm as jpfm
 from localexpstereo_tpu_torch.cli import main as tcli
-from localexpstereo_tpu_torch.utils import acrt, calib, pfm, png
+from localexpstereo_tpu_torch.utils import acrt, calib, pfm, png, synthetic
 
 H, W, ND = 40, 72, 12
 SCHEDULE = ["-pmIterations", "1", "-iterations", "2", "-seed", "0"]
@@ -162,7 +163,6 @@ def test_flags_and_spellings():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-mode", "MiddV2"], "A11"),
     (["-volume", "mccnn"], "A13"),
     (["-laneFriendly", "1"], "laneFriendly"),
 ])
@@ -175,10 +175,11 @@ def test_unported_flags_fail_loudly(flags, item):
     (["-doDual", "1"], "do_dual", True),
     (["-fuseSeeds", "3", "-doDual", "1"], "do_dual", True),
     (["-volPrecision", "bfloat16"], "vol_precision", "bfloat16"),
+    (["-mode", "MiddV2"], "mode", "MiddV2"),
 ])
 def test_ported_flags_are_taken(flags, field, value):
     """The flags the port once refused (the two views, A10; the bfloat16
-    volume) are taken now."""
+    volume; the V2 mode, A11) are taken now."""
     opt = tcli.parse_args(["-mode", "MiddV3", *flags])
     assert getattr(opt, field) == value
     assert tcli.parse_args(["-mode", "MiddV3"]).do_dual is False
@@ -186,7 +187,7 @@ def test_ported_flags_are_taken(flags, field, value):
 
 def test_usage_without_mode(capsys):
     assert tcli.main(["-device", "cpu"]) == 1
-    assert "-mode [MiddV3]" in capsys.readouterr().out
+    assert "-mode [MiddV2, MiddV3]" in capsys.readouterr().out
 
 
 def test_device_cuda_without_card_raises(tmp_path):
@@ -198,19 +199,80 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 
 def test_cli_imports_no_jax(tmp_path):
+    """The command line imports no jax, JAX package or OpenCV, also when it
+    runs the MiddV2 mode (one graph-cut sweep of a 32 x 48 scene, with jax
+    made unimportable)."""
     code = textwrap.dedent("""
         import sys
-        import localexpstereo_tpu_torch.cli.main
-        bad = [m for m in sys.modules if m == "jax" or m.startswith(
-            ("jax.", "localexpstereo_tpu.", "cv2"))]
+        sys.modules["jax"] = None
+        import torch
+        torch.set_num_threads(1)
+        from localexpstereo_tpu_torch.cli import main
+        from localexpstereo_tpu_torch.utils import synthetic
+        synthetic.write_v2_scene("scene", 32, 48, 12)
+        assert main.main(["-mode", "MiddV2", "-targetDir", "scene",
+                          "-outputDir", "out", "-device", "cpu",
+                          "-pmIterations", "0", "-iterations", "1",
+                          "-warmup", "0"]) == 0
+        bad = [m for m in sys.modules if sys.modules[m] is not None and (
+            m == "jax" or m.startswith(("jax.", "localexpstereo_tpu.",
+                                        "cv2")))]
         assert not bad, bad
         print("OK")
     """)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=tmp_path, timeout=120,
+                         text=True, cwd=tmp_path, timeout=300,
                          env=dict(os.environ, PYTHONPATH=root))
-    assert res.returncode == 0 and res.stdout.strip() == "OK", res.stderr
+    assert res.returncode == 0 and res.stdout.strip().endswith("OK"), \
+        res.stderr
+    assert (tmp_path / "out" / "disp0.pfm").exists()
+
+
+V2_H, V2_W, V2_ND = 48, 64, 16
+
+
+def test_cli_midv2_do_dual_matches_jax(tmp_path):
+    """-mode MiddV2 -doDual 1 through both command lines on a written V2
+    directory (``synthetic.write_v2_scene``: 48 x 64, 16 disparities,
+    imL/imR.png, groundtruth.png at scale 4, nonocc.png, info.txt), the
+    V2 layers {5, 15, 25}, 1 greedy + 1 graph-cut sweep, the JAX side's
+    min-cut knobs set to the port's (16, 16): 1 + 1 + 1 + 1 log rows each,
+    energies within 0.002·|E| + 1e-3, the log's bad rates (threshold 0.5
+    on the quarter-pixel ground truth) within 0.5 pt; disp0.pfm and
+    disp0raw.pfm within 0.5 px of the JAX ones at 99 % of the pixels; the
+    consistency images as the JAX command line writes them."""
+    truth = synthetic.write_v2_scene(str(tmp_path / "scene"), V2_H, V2_W,
+                                     V2_ND, seed=3)
+    scene = str(tmp_path / "scene")
+    schedule = ["-doDual", "1", "-pmIterations", "1", "-iterations", "1",
+                "-seed", "0", "-warmup", "0"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jeng.LocalExpansionSolver, "_apply_cfg_overrides",
+                   lambda self, cfg: dataclasses.replace(
+                       cfg, gc_rounds=16, gc_sweeps=16))
+        assert jcli.main(["-mode", "MiddV2", "-targetDir", scene,
+                          "-outputDir", str(tmp_path / "jax"), "-platform",
+                          "cpu", *schedule]) == 0
+    assert tcli.main(["-mode", "MiddV2", "-targetDir", scene, "-outputDir",
+                      str(tmp_path / "port"), "-device", "cpu",
+                      *schedule]) == 0
+    want, got = _log(tmp_path / "jax"), _log(tmp_path / "port")
+    assert got.shape == want.shape == (1 + 1 + 1 + 1, 6)
+    for g, w in zip(got[:, 1], want[:, 1]):
+        assert abs(g - w) <= 0.002 * abs(w) + 1e-3, (got[:, 1], want[:, 1])
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], atol=0.5)
+    for name in ("disp0.pfm", "disp0raw.pfm"):
+        d_got = pfm.read_pfm(str(tmp_path / "port" / name))
+        d_want = jpfm.read_pfm(str(tmp_path / "jax" / name))
+        assert d_got.shape == (V2_H, V2_W) and np.isfinite(d_got).all()
+        assert (np.abs(d_got - d_want) < 0.5).mean() >= 0.99
+        assert _bad(d_got, truth, 2.0) < 50.0
+    assert float(open(tmp_path / "port" / "time.txt").read()) > 0
+    names = {n for n in os.listdir(tmp_path / "port" / "debug") if "C" in n}
+    assert names == {n for n in os.listdir(tmp_path / "jax" / "debug")
+                     if "C" in n} == {f"result{mode}C{index:02d}.png"
+                                      for mode in (0, 1) for index in (1, 2)}
 
 
 # ------------------------------------------------------------ the codecs ---

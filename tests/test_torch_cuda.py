@@ -62,6 +62,8 @@ def _fusion_graph(cuda, n, s):
     (16, 12, 16, 16), (3, 40, 16, 64), (5, 9, 2, 3),   # last: truncated solve
     (2, 260, 2, 4),     # a cluster of 16, short last band, truncated
     (1, 130, 16, 16),   # one region on a cluster of 16
+    # The V2 path's at 450 x 375 (layers {5, 15, 25}).
+    (437, 15, 16, 16), (56, 45, 16, 16), (20, 75, 16, 16),
 ])
 def test_expansion_kernel_matches_plain(cuda, n, s, rounds, sweeps):
     """Masks bitwise equal to the plain version's, at the card's plan."""
@@ -265,3 +267,45 @@ def test_solve_on_card_matches_cpu(cuda, windr, route):
     assert (launched > 0) == (route == "dma")
     for got, want in zip(energies["cuda"], energies["cpu"]):
         assert abs(got - want) <= 0.002 * abs(want) + 1e-3, energies
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modes,max_vdisp", [((0,), 0.0), ((0, 1), 0.0),
+                                             ((0,), 1.0)])
+def test_v2_solve_on_card_matches_cpu(cuda, modes, max_vdisp):
+    """A small V2 (image-warp) solve on the card lands on the CPU solve's
+    energies, one view, both views (with the post-process) and one view
+    with vertical disparity; the graph-cut sweeps launch the expansion
+    kernel, and nothing launches the volume kernel."""
+    energies = {}
+    launches = (mincut_cuda.expansion_accept.launches,
+                unary_cuda.sample_windows.launches)
+    for device in (cuda, torch.device("cpu")):
+        # 96 x 144: smaller scenes drift apart by up to 1 % (ties that
+        # rounding decides: chip_smoke.py's V2_SMALL).
+        solver, _, _, _ = synthetic.v2_solver(96, 144, 24, device,
+                                              sizes=[4, 8, 16],
+                                              max_vdisp=max_vdisp)
+        out = {m: [] for m in modes}
+
+        class Rec:
+            def start(self):
+                pass
+
+            def stop(self):
+                pass
+
+            def evaluate(self, solver, lab, cost, mode, index):
+                out[mode].append(float(engine.energy_audit(
+                    solver.data, solver.cfg, lab, cost, mode)[0]))
+
+        solver.set_evaluator(Rec())
+        lab, _ = solver.run(iterations=1, view_modes=modes, pm_iterations=1)
+        assert lab.device.type == device.type
+        energies[device.type] = out
+    assert mincut_cuda.expansion_accept.launches > launches[0]
+    assert unary_cuda.sample_windows.launches == launches[1]
+    for mode in modes:
+        assert len(energies["cuda"][mode]) == len(energies["cpu"][mode])
+        for got, want in zip(energies["cuda"][mode], energies["cpu"][mode]):
+            assert abs(got - want) <= 0.002 * abs(want) + 1e-3, energies
