@@ -39,7 +39,11 @@ Phases, each printing JSON lines:
             solve's raw labelings equal to the CPU's (one CPU solve serves
             both routes: on the CPU they are the same arithmetic); then a
             small V2 (image-warp) solve the same way, 96 x 144: both views,
-            and one view with ``max_vdisp`` > 0;
+            and one view with ``max_vdisp`` > 0; and a 3-frame
+            ``StereoStream`` (96 x 144 x 24, a pan of 2 px a frame, 1 + 1
+            cold, 1 warm), each frame's energy within the trajectory
+            tolerance of the CPU stream's, and a pipelined card stream's
+            maps bitwise the sync card stream's, one frame later;
 7. slice:   ``LocalExpansionSolver(device="cuda")`` on the 1436 x 992 x 145
             synthetic problem, 3 layers, 1 greedy + 1 graph-cut sweep (the
             full 2 + 5 runs in cli, fuse and dual): seconds per sweep
@@ -74,7 +78,33 @@ Phases, each printing JSON lines:
             > 0), the post-process's failed pixels, the peak device memory;
             disp0.pfm differs from disp0raw.pfm only where the check
             failed;
-12. profile: the init + one greedy sweep on each unary route, unprofiled
+12. mccnn:  the MC-CNN network (``models/mccnn.py``, plain torch, bundled
+            weights) on the card against the CPU on a 192 x 256 crop of
+            the stream scene at 64 disparities (features and volume, max
+            abs error, held to MCCNN_ATOL), then the full 1436 x 992 x 145
+            volume of one pair on the card: median of 3 after a warm-up
+            (CUDA events), the peak device memory, and its bound;
+13. stream:  ``serving.StereoStream`` at the main path's width: a pan of 2 px
+            a frame over ``synthetic.v2_scene`` rendered at 992 x (1436 +
+            14) with 145 disparities, each frame's volume from the MC-CNN
+            on the card (as both views' volume), PARAMS_GF windR 20,
+            lambda 0.5, th_col 0.5, layers [14, 43, 129]: frame 0 cold (2
+            + 5), frames 1-4 warm (1 graph-cut sweep, "cell" warm start)
+            with the build / solve / output split, then 3 warm frames
+            pipelined and the flush. Per frame the MC-CNN seconds, the
+            frame's seconds, the energy and bad1.0 against the truth; the
+            expansion kernel's launches (exactly those of the schedule) and
+            the peak device memory. Fails if a warm frame's bad1.0 is more
+            than 2 points above the cold frame's or a map is not finite;
+14. cli_mccnn: the command line ``-mode MiddV3 -volume mccnn
+            -unaryBackend dma -warmup 0 -device cuda`` at 2 + 5 on the
+            stream scene's first frame written as a MiddV3 directory
+            without any .acrt: time.txt, wall seconds, the volumes'
+            seconds (the MC-CNN on the card, the right view's recovery on
+            the host), the energy build's seconds on the card, the 8 log
+            rows, bad rates, both kernels' launches (> 0), the peak device
+            memory;
+15. profile: the init + one greedy sweep on each unary route, unprofiled
             in turns (2 each), then the ``dma`` route's under
             torch.profiler, and one graph-cut sweep under torch.profiler:
             wall seconds, and for the profiled windows device-busy seconds,
@@ -83,9 +113,10 @@ Phases, each printing JSON lines:
             graph-cut sweep's peak device memory.
 
 A full run takes the phases in this order but runs ``small`` after
-``v2``: its CPU solves run meanwhile in a worker process that does not see
-the card. Then a ``{"kernels": [...]}`` line (launches from the ``fuse``
-run, with the ``cli``, ``dual`` and ``v2`` runs' beside them), the
+``stream``: its CPU solves run meanwhile in a worker process that does not
+see the card. Then a ``{"kernels": [...]}`` line (launches from the
+``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream`` and
+``cli_mccnn`` runs' beside them), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -94,6 +125,7 @@ named phases (after env and build) and prints no result line.
 """
 from __future__ import annotations
 
+import functools
 import json
 import multiprocessing
 import pathlib
@@ -138,6 +170,22 @@ UNARY_ATOL = {0: 1e-6, 10: 2e-4}
 CLI_DIR = pathlib.Path(__file__).resolve().parent / "build" / "smoke_cli"
 #: The v2 phase's scene: the cones size and disparity count.
 V2_H, V2_W, V2_NDISP = 375, 450, 60
+#: The stream phase: a frame's size and disparities (the main path's), the
+#: pan's step, the frames (1 cold, 4 warm with the split, 3 pipelined) and
+#: the layers.
+STREAM_H, STREAM_W, STREAM_NDISP = 992, 1436, 145
+STREAM_STEP, STREAM_FRAMES, STREAM_PROFILED = 2, 8, 4
+STREAM_LAYERS = [14, 43, 129]
+#: A warm frame's bad1.0 may exceed the cold frame's by this many points
+#: (tests/test_serving.py's margin).
+STREAM_BAD_MARGIN = 2.0
+#: The mccnn phase: the crop (height, width, disparities) held against the
+#: CPU, and the tolerance of the card's features and volume there (full
+#: float32 convolutions on both; TF32 is off on the card).
+MCCNN_CROP = (192, 256, 64)
+MCCNN_ATOL = 1e-5
+#: The small stream: height, width, disparities, frames.
+SMALL_STREAM = (96, 144, 24, 3)
 
 
 def emit(obj) -> None:
@@ -421,6 +469,34 @@ def small_v2(torch, device, modes, max_vdisp):
             unary_cuda.sample_windows.launches)
 
 
+def small_stream(torch, device, pipelined=False):
+    """The small stream (SMALL_STREAM: ``synthetic.pan_frames``, the frame's
+    volume as both views', layers SMALL_LAYERS, windR 20, 1 + 1 cold, 1
+    warm) on ``device``: (each frame's energy, the maps that process()
+    returned and, pipelined, flush()'s, expansion_accept launches)."""
+    from localexpstereo_tpu_torch.config import PARAMS_GF
+    from localexpstereo_tpu_torch.models import engine
+    from localexpstereo_tpu_torch.ops import mincut_cuda
+    from localexpstereo_tpu_torch.serving import StereoStream
+    from localexpstereo_tpu_torch.utils import synthetic
+    h, w, nd, n = SMALL_STREAM
+    stream = StereoStream(PARAMS_GF.replace(windR=20, lambda_=0.5,
+                                            th_col=0.5),
+                          max_disp=float(nd - 1), unit_sizes=SMALL_LAYERS,
+                          cold_iterations=1, cold_pm_iterations=1,
+                          pipelined=pipelined, device=device)
+    mincut_cuda.expansion_accept.launches = 0
+    energies, maps = [], []
+    for img, vol, _ in synthetic.pan_frames(h, w, nd, n):
+        maps.append(stream.process(img, img, vol, vol))
+        s = stream.solver
+        energies.append(float(engine.energy_audit(s.data, s.cfg,
+                                                  *s._state[0], 0)[0]))
+    if pipelined:
+        maps.append(stream.flush())
+    return energies, maps, mincut_cuda.expansion_accept.launches
+
+
 def cpu_twins(torch):
     """Every CPU solve that the small phase holds the card against, keyed
     by case: the V3 solve at each windR (on the CPU the "dma" route runs
@@ -435,6 +511,7 @@ def cpu_twins(torch):
     twins["dual"] = small_dual(torch, "cpu")
     for case in V2_SMALL_CASES:
         twins[("v2", *case)] = small_v2(torch, "cpu", *case)
+    twins["stream"] = small_stream(torch, "cpu")
     return twins
 
 
@@ -471,6 +548,32 @@ def phase_small(torch, twins=None):
     phase_small_fuse(torch, twins)
     phase_small_dual(torch, twins)
     phase_small_v2(torch, twins)
+    phase_small_stream(torch, twins)
+
+
+def phase_small_stream(torch, twins):
+    """The small stream on the card, sync and pipelined, against the CPU's:
+    each frame's energy within the trajectory tolerance; the pipelined
+    maps None first, then bitwise the sync ones, one frame later, the last
+    from flush(); the expansion kernel launched on the card."""
+    e_gpu, sync, n_gpu = small_stream(torch, "cuda")
+    e_cpu, cpu_maps, _ = twins["stream"]
+    e_pipe, pipe, _ = small_stream(torch, "cuda", pipelined=True)
+    ok = _close(e_gpu, e_cpu) and n_gpu > 0 and e_pipe == e_gpu
+    ok &= pipe[0] is None and len(pipe) == len(sync) + 1
+    ok &= all(np.array_equal(a, b) for a, b in zip(pipe[1:], sync))
+    ok &= all(np.isfinite(m).all() for m in sync)
+    near = [float((np.abs(a - b) < 0.5).mean())
+            for a, b in zip(sync, cpu_maps)]
+    emit({"phase": "small", "stream": list(SMALL_STREAM),
+          "layers": SMALL_LAYERS, "energies_cuda": e_gpu,
+          "energies_cpu": e_cpu, "energies_pipelined": e_pipe,
+          "within_half_px_of_cpu": near,
+          "expansion_accept_launches_cuda": n_gpu,
+          "pipelined_equal_sync": ok, "agree": ok})
+    if not ok:
+        raise AssertionError("the card's stream disagrees with the CPU's, "
+                             "or its pipelined maps with its sync ones")
 
 
 def phase_small_fuse(torch, twins):
@@ -1274,8 +1377,257 @@ def phase_v2(torch):
     return row
 
 
+@functools.lru_cache(maxsize=1)
+def stream_scene():
+    """The stream phase's scene, wide enough for its pan: (left, right
+    [H, W', 3] uint8, left disparity truth [H, W'], nonocc [H, W'])."""
+    from localexpstereo_tpu_torch.utils import synthetic
+    return synthetic.v2_scene(
+        STREAM_H, STREAM_W + STREAM_STEP * (STREAM_FRAMES - 1), STREAM_NDISP)
+
+
+def mccnn_net(device):
+    from localexpstereo_tpu_torch.models import mccnn
+    return mccnn.params_from_jax(mccnn.load_default_params()).to(device)
+
+
+def mccnn_bound(h: int, w: int, nd: int, channels):
+    """(ms, by) of one pair's volume: the towers' multiply-adds on both
+    images and the correlation's, in float32; the images read and the
+    volume written once."""
+    c_in, ops = 3, 0
+    for c_out in channels:
+        ops += 2 * 9 * c_in * c_out
+        c_in = c_out
+    nops = h * w * (2 * ops + 2 * nd * c_in)
+    return bound(2 * h * w * 3 * 4 + nd * h * w * 4, nops)
+
+
+def phase_mccnn(torch):
+    """The MC-CNN on the card against the CPU on a crop of the stream
+    scene, then the full volume of one pair timed on the card."""
+    from localexpstereo_tpu_torch.models import mccnn
+    left, right, _, _ = stream_scene()
+    h, w, nd = MCCNN_CROP
+    y0, x0 = (STREAM_H - h) // 2, (STREAM_W - w) // 2
+    crop = [np.ascontiguousarray(im[y0:y0 + h, x0:x0 + w])
+            for im in (left, right)]
+    gpu, cpu = mccnn_net("cuda"), mccnn_net("cpu")
+    tf32 = torch.backends.cudnn.allow_tf32
+    f_err = float((mccnn.features(gpu, crop[0]).cpu()
+                   - mccnn.features(cpu, crop[0])).abs().max())
+    v_err = float((mccnn.cost_volume(gpu, *crop, nd).cpu()
+                   - mccnn.cost_volume(cpu, *crop, nd)).abs().max())
+    restored = torch.backends.cudnn.allow_tf32 == tf32
+    ims = [torch.as_tensor(im[:, :STREAM_W], dtype=torch.float32,
+                           device="cuda") for im in (left, right)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for i in range(4):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        vol = mccnn.cost_volume(gpu, *ims, STREAM_NDISP)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+        del vol
+    bound_ms, bound_by = mccnn_bound(STREAM_H, STREAM_W, STREAM_NDISP,
+                                     [c.out_channels for c in gpu.convs])
+    ok = max(f_err, v_err) <= MCCNN_ATOL and restored
+    row = {"phase": "mccnn", "crop": list(MCCNN_CROP),
+           "features_max_abs_err": f_err, "volume_max_abs_err": v_err,
+           "atol": MCCNN_ATOL, "cudnn_tf32_setting_restored": restored,
+           "shape": [STREAM_H, STREAM_W, STREAM_NDISP],
+           "volume_ms": statistics.median(times), "volume_ms_runs": times,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+           "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"the card's MC-CNN disagrees with the CPU's: "
+                             f"{row}")
+    return row
+
+
+def stream_gc_launches(iterations: int) -> int:
+    """expansion_accept launches of ``iterations`` graph-cut sweeps of the
+    stream's solve: one a plan step, a color and a layer (make_plan and
+    the layers of a 1436 x 992 frame)."""
+    from localexpstereo_tpu_torch.models import engine, grid
+    layers = grid.build_layers(STREAM_W, STREAM_H, STREAM_LAYERS)
+    return sum(
+        len(engine.make_plan(engine.LAYER0_PROPOSERS if li == 0
+                             else engine.COARSE_PROPOSERS, it, 0.0,
+                             float(STREAM_NDISP - 1))) * len(layer.colors)
+        for it in range(iterations) for li, layer in enumerate(layers))
+
+
+def phase_stream(torch):
+    """StereoStream over the panned scene with the MC-CNN volume of each
+    frame computed on the card."""
+    from localexpstereo_tpu_torch.config import PARAMS_GF
+    from localexpstereo_tpu_torch.models import engine, mccnn
+    from localexpstereo_tpu_torch.serving import StereoStream
+    left, right, truth, nonocc = stream_scene()
+    net = mccnn_net("cuda")
+    ims = [torch.as_tensor(im, dtype=torch.float32, device="cuda")
+           for im in (left, right)]
+    stream = StereoStream(PARAMS_GF.replace(windR=20, lambda_=0.5,
+                                            th_col=0.5),
+                          max_disp=float(STREAM_NDISP - 1),
+                          unit_sizes=STREAM_LAYERS, profile=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fns = kernel_launches()
+    for fn in fns.values():
+        fn.launches = 0
+    frames, maps = [], {}
+    for k in range(STREAM_FRAMES):
+        if k == 1 + STREAM_PROFILED:
+            stream.profile, stream.pipelined = False, True
+        cols = slice(STREAM_STEP * k, STREAM_STEP * k + STREAM_W)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vol = mccnn.cost_volume(net, ims[0][:, cols], ims[1][:, cols],
+                                STREAM_NDISP)
+        torch.cuda.synchronize()
+        mccnn_s = time.perf_counter() - t0
+        disp = stream.process(ims[0][:, cols], ims[1][:, cols], vol, vol)
+        del vol
+        s = stream.solver
+        frames.append({
+            "frame": k, "kind": "cold" if k == 0 else "warm",
+            "pipelined": stream.pipelined, "mccnn_s": mccnn_s,
+            "frame_s": stream.last_frame_seconds,
+            "split": stream.last_timings if stream.profile else None,
+            "energy": float(engine.energy_audit(s.data, s.cfg, *s._state[0],
+                                                0)[0])})
+        if disp is not None:
+            maps[k - 1 if stream.pipelined else k] = disp
+    maps[STREAM_FRAMES - 1] = stream.flush()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    for k, row in enumerate(frames):
+        cols = slice(STREAM_STEP * k, STREAM_STEP * k + STREAM_W)
+        err = np.abs(maps[k] - truth[:, cols]) > 1.0
+        row["finite"] = bool(np.isfinite(maps[k]).all())
+        row["bad10"] = float(err.mean() * 100)
+        row["bad10_nonocc"] = float(err[nonocc[:, cols]].mean() * 100)
+    warm_sync = [r["frame_s"] for r in frames[1:1 + STREAM_PROFILED]]
+    piped = [r["frame_s"] for r in frames[1 + STREAM_PROFILED:]]
+    expected = stream_gc_launches(5) + (STREAM_FRAMES - 1) * \
+        stream_gc_launches(1)
+    row = {"phase": "stream", "shape": [STREAM_H, STREAM_W, STREAM_NDISP],
+           "layers": STREAM_LAYERS, "step_px": STREAM_STEP,
+           "frames": frames, "cold_s": frames[0]["frame_s"],
+           "warm_sync_mean_s": statistics.mean(warm_sync),
+           "warm_pipelined_mean_s": statistics.mean(piped),
+           "warm_split_mean_s": {
+               key: statistics.mean(r["split"][key]
+                                    for r in frames[1:1 + STREAM_PROFILED])
+               for key in ("build_s", "solve_s", "output_s")},
+           "mccnn_mean_s": statistics.mean(r["mccnn_s"] for r in frames),
+           "launches": launches, "expansion_accept_expected": expected,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(row)
+    cold = frames[0]["bad10"]
+    if not all(r["finite"] for r in frames):
+        raise AssertionError("a stream frame's map is not finite")
+    if any(r["bad10"] > cold + STREAM_BAD_MARGIN for r in frames[1:]):
+        raise AssertionError(f"a warm frame's bad1.0 is more than "
+                             f"{STREAM_BAD_MARGIN} points above the cold "
+                             f"frame's: {[r['bad10'] for r in frames]}")
+    if launches["expansion_accept"] != expected:
+        raise AssertionError(f"expansion_accept launched "
+                             f"{launches['expansion_accept']} times, the "
+                             f"schedule has {expected}")
+    return row
+
+
+def write_stream_frame_scene(target: pathlib.Path):
+    """The stream scene's first frame as a MiddV3 directory without any
+    .acrt: im0/im1.png, calib.txt, disp0GT.pfm."""
+    from localexpstereo_tpu_torch.utils import pfm, png
+    left, right, truth, _ = stream_scene()
+    h, w, nd = STREAM_H, STREAM_W, STREAM_NDISP
+    target.mkdir(parents=True)
+    png.write(str(target / "im0.png"), np.ascontiguousarray(left[:, :w]))
+    png.write(str(target / "im1.png"), np.ascontiguousarray(right[:, :w]))
+    (target / "calib.txt").write_text(
+        f"cam0=[1000 0 {w / 2}; 0 1000 {h / 2}; 0 0 1]\n"
+        f"cam1=[1000 0 {w / 2}; 0 1000 {h / 2}; 0 0 1]\n"
+        f"doffs=0\nbaseline=100\nwidth={w}\nheight={h}\nndisp={nd}\n")
+    pfm.write_pfm(str(target / "disp0GT.pfm"),
+                  np.ascontiguousarray(truth[:, :w]))
+
+
+def phase_cli_mccnn(torch):
+    """The command line with -volume mccnn -unaryBackend dma (2 + 5,
+    no warm-up solve) on the stream scene's first frame: the left volume
+    from the MC-CNN on the card, the right one recovered from it on the
+    host, the energy built on the card with the data-dependent uint8
+    range."""
+    from localexpstereo_tpu_torch.cli import main as cli
+    from localexpstereo_tpu_torch.models import energy
+    scene = CLI_DIR / "mccnn_scene"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if not scene.exists():
+        write_stream_frame_scene(scene)
+    write_s = time.perf_counter() - t0
+    load = cli.load_v3_volumes
+    load_s = []
+
+    def timed_load(*args, **kwargs):
+        t = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t)
+        return out
+    fns = kernel_launches()
+    for fn in fns.values():
+        fn.launches = 0
+    cli.load_v3_volumes = timed_load
+    try:
+        with SetupTimer(torch, energy) as setup:
+            wall_s, log, time_txt, disp = run_cli(
+                ["-volume", "mccnn", "-unaryBackend", "dma", "-warmup", "0",
+                 "-device", "cuda"], CLI_DIR / "mccnn_out", scene=scene)
+    finally:
+        cli.load_v3_volumes = load
+    launches = {k: fns[k].launches
+                for k in ("expansion_accept", "sample_windows")}
+    row = {"phase": "cli_mccnn",
+           "argv": "-mode MiddV3 -volume mccnn -unaryBackend dma -warmup 0 "
+                   "-device cuda (2 + 5)",
+           "shape": [STREAM_H, STREAM_W, STREAM_NDISP],
+           "scene_write_s": write_s, "wall_s": wall_s,
+           "time_txt": time_txt, "volumes_s": load_s,
+           "setup_s": setup.seconds,
+           "sweep_s": [b[0] - a[0] for a, b in zip(log, log[1:])],
+           "energies": [r[1] for r in log], "bad_all": [r[4] for r in log],
+           "launches": launches, "disp_shape": list(disp.shape),
+           "disp_finite": bool(np.isfinite(disp).all()),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(row)
+    energies = row["energies"]
+    if len(energies) != 1 + 2 + 5:
+        raise AssertionError(f"expected 8 log rows, got {len(energies)}")
+    check_disparity(disp, (STREAM_H, STREAM_W))
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel was never launched: {launches}")
+    gc = energies[2:]
+    if any(b > a for a, b in zip(gc, gc[1:])):
+        raise AssertionError(f"graph-cut energy rose: {energies}")
+    return row
+
+
 PHASES = ("kernel", "mincut_kernel", "unary_kernel", "small", "slice", "cli",
-          "fuse", "dual", "v2", "profile")
+          "fuse", "dual", "v2", "mccnn", "stream", "cli_mccnn", "profile")
 
 
 def main(argv) -> int:
@@ -1319,6 +1671,9 @@ def main(argv) -> int:
         fuse_row = timed("fuse", phase_fuse)
         dual_row = timed("dual", phase_dual, cli_row)
         v2_row = timed("v2", phase_v2)
+        timed("mccnn", phase_mccnn)
+        stream_row = timed("stream", phase_stream)
+        mccnn_cli_row = timed("cli_mccnn", phase_cli_mccnn)
         t0 = time.perf_counter()
         twins = twins.get()
         seconds["small_twins_wait"] = time.perf_counter() - t0
@@ -1335,7 +1690,7 @@ def main(argv) -> int:
     # its uint8 volume).
     # For expansion_accept, of the V3 main path's shapes; "v2" holds the
     # same at the V2 path's.
-    # launches: the fuse run's.
+    # launches: the fuse run's; launches_<phase>: that phase's run's.
     gf = [r for r in urows if r["r_gf"] > 0 and r["dtype"] == "uint8"]
     emit({"kernels": [
         {"name": "expansion_accept", "route": "cuda",
@@ -1345,6 +1700,8 @@ def main(argv) -> int:
          "launches_cli": cli_row["launches"]["expansion_accept"],
          "launches_dual": dual_row["launches"]["expansion_accept"],
          "launches_v2": v2_row["launches"]["expansion_accept"],
+         "launches_stream": stream_row["launches"]["expansion_accept"],
+         "launches_cli_mccnn": mccnn_cli_row["launches"]["expansion_accept"],
          "launches_slice": first["expansion_accept_launches"],
          **kernel_entry([r for r in rows if r["path"] == "v3"]),
          "v2": kernel_entry([r for r in rows if r["path"] == "v2"])},
@@ -1354,6 +1711,7 @@ def main(argv) -> int:
          "launches": fuse_row["launches"]["sample_windows"],
          "launches_cli": cli_row["launches"]["sample_windows"],
          "launches_dual": dual_row["launches"]["sample_windows"],
+         "launches_cli_mccnn": mccnn_cli_row["launches"]["sample_windows"],
          **kernel_entry(gf),
          "max_abs_err": max(r["max_abs_err"] for r in urows)},
         {"name": "mincut_accept", "route": "cuda",

@@ -60,8 +60,7 @@ COST_FOR_INVALID = 1e6
 class Options:
     """Run-level options (reference ``main.cpp:14-70``; the JAX package's
     ``Options`` with ``device`` in place of its ``platform``, and without
-    the settings the port does not take yet: the ``.acrt`` volume is the
-    only one)."""
+    the settings the port does not take)."""
 
     mode: str = ""  # "MiddV2" or "MiddV3"
     output_dir: str = ""
@@ -80,6 +79,9 @@ class Options:
     #: fuse their labelings into its result (energy-best-of-N by the fusion
     #: move); 0 or 1 solve one seed.
     fuse_seeds: int = 0
+    #: V3 cost volume (-volume): "acrt" (the dataset's im0.acrt) or
+    #: "mccnn" (computed from the images by the bundled MC-CNN weights).
+    volume: str = "acrt"
     #: Cost-volume storage on the device: "uint8" (default; 256 levels over
     #: [0, 2*mc_threshold]), "bfloat16" or "float32" (-volPrecision).
     vol_precision: str = "uint8"

@@ -35,6 +35,7 @@ import torch
 from ..config import Parameters
 from ..ops import mincut, mincut_cuda, pairwise, rng, windows
 from ..ops import plane as plane_ops
+from ..utils import checkpoint
 from . import energy as energy_mod
 from . import grid, postprocess, proposals
 
@@ -200,12 +201,19 @@ def _init_canvas(x: torch.Tensor, hb: int, wb: int, s: int) -> torch.Tensor:
 
 
 def init_step(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
-              key: torch.Tensor, *, unit_size: int, mode: int):
+              key: torch.Tensor, *, unit_size: int, mode: int,
+              seed_labeling_m: Optional[torch.Tensor] = None):
     """Random per-cell initialization (``initCurrentFast``,
     ``FastGCStereo.h:94-115``): one random label at a random pixel of each
     layer-0 cell, assigned cell-wide, its unary evaluated on the cell.
     Returns the padded (labeling_m [Hp, Wp, 4], cost_m [Hp, Wp]). The
-    unary runs the plain sampler on every route, as the JAX init does."""
+    unary runs the plain sampler on every route, as the JAX init does.
+
+    With ``seed_labeling_m`` (a padded [Hp, Wp, 4] labeling on the
+    energy's device) each cell's label is read from it at the cell's
+    random pixel instead of drawn: the "cell" warm start of the serving
+    path, at the cost of a random init (the reference's per-pixel warm
+    evaluation, ``FastGCStereo.h:117-130``, is "very slow")."""
     s = unit_size
     p = cfg.pad
     dev = data.coeff8.device
@@ -220,10 +228,13 @@ def init_step(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
 
     kp, kl = rng.split(key)
     xx, yy = proposals._cell_pixel(kp, ox, oy, cw, ch)
-    labels = plane_ops.random_label(kl, (ox + xx).to(torch.float32),
-                                    (oy + yy).to(torch.float32),
-                                    cfg.min_disp, cfg.max_disp,
-                                    cfg.max_vdisp)
+    if seed_labeling_m is None:
+        labels = plane_ops.random_label(kl, (ox + xx).to(torch.float32),
+                                        (oy + yy).to(torch.float32),
+                                        cfg.min_disp, cfg.max_disp,
+                                        cfg.max_vdisp)
+    else:
+        labels = seed_labeling_m[p + oy + yy, p + ox + xx].contiguous()
     stat_windows = energy_mod.dense_filter_windows(
         data, cfg, mode, ox, oy, 0, 0, hb, wb, s, 0, s)
     cost = energy_mod.unary_windows(data, cfg, mode, labels, ox, oy, 0, s,
@@ -318,6 +329,13 @@ def energy_audit(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
     return dc + sc, dc, sc
 
 
+def _image(image):
+    """An image as float32: a tensor stays on its device."""
+    if isinstance(image, torch.Tensor):
+        return image.to(torch.float32)
+    return np.asarray(image, np.float32)
+
+
 class LocalExpansionSolver:
     """Host-side orchestration (the reference's ``FastGCStereo`` object)
     for one or both views of a stereo pair: with cost volumes ``vol0`` and
@@ -333,19 +351,23 @@ class LocalExpansionSolver:
     sampling + guided-filter kernel (its plain version on the CPU); "auto"
     keeps the plain sampler; the V2 energy has the warp sampler on either.
     ``vol_dtype``: "uint8", "bfloat16" or "float32" volume storage.
+    ``stats_backend``: the uint8 volume range of :func:`energy.build_energy`
+    (which builds on ``device`` either way), "host" (data-dependent, the
+    JAX package's default) or "device" (static; needed by
+    :meth:`update_frame`). Images and volumes may be numpy arrays or
+    tensors, on the card already.
     """
 
-    def __init__(self, im0_bgr: np.ndarray, im1_bgr: np.ndarray,
-                 params: Parameters, max_disp: float,
-                 vol0: Optional[np.ndarray] = None,
-                 vol1: Optional[np.ndarray] = None, min_disp: float = 0.0,
-                 max_vdisp: float = 0.0, seed: int = 0, device="cuda",
-                 unary_backend: str = "auto", vol_dtype: str = "uint8"):
+    def __init__(self, im0_bgr, im1_bgr, params: Parameters,
+                 max_disp: float, vol0=None, vol1=None,
+                 min_disp: float = 0.0, max_vdisp: float = 0.0,
+                 seed: int = 0, device="cuda", unary_backend: str = "auto",
+                 vol_dtype: str = "uint8", stats_backend: str = "host"):
         if unary_backend not in ("auto", "dma"):
             raise ValueError(f"unary_backend {unary_backend!r}: the port "
                              f"has 'auto' and 'dma'")
-        self.im0 = np.asarray(im0_bgr, np.float32)
-        self.im1 = np.asarray(im1_bgr, np.float32)
+        self.im0 = _image(im0_bgr)
+        self.im1 = _image(im1_bgr)
         self.params = params
         self.max_disp = float(max_disp)
         self.min_disp = float(min_disp)
@@ -356,6 +378,7 @@ class LocalExpansionSolver:
         self.device = torch.device(device)
         self.unary_backend = unary_backend
         self.vol_dtype = vol_dtype
+        self.stats_backend = stats_backend
         self.unit_sizes: List[int] = []
         self.layer_proposers: List[Tuple[str, ...]] = []
         self.evaluator = None
@@ -384,15 +407,54 @@ class LocalExpansionSolver:
         self.layers = grid.build_layers(w, h, self.unit_sizes)
         if self.data is None:
             pad = grid.required_padding(self.unit_sizes, self.params.windR)
-            vol_pad = grid.required_volume_padding(
-                w, h, self.unit_sizes, self.params.guided_radius)
-            self.data, self.cfg = energy_mod.build_energy(
-                self.im0, self.im1, self.params, self.max_disp, pad,
-                self.vol0, self.vol1, self.min_disp, self.max_vdisp,
-                vol_pad=vol_pad, device=self.device,
-                vol_dtype=self.vol_dtype)
+            self.data, self.cfg = self._build_energy(
+                self.im0, self.im1, self.vol0, self.vol1, pad)
         self.cfg = dataclasses.replace(self.cfg,
                                        unary_backend=self.unary_backend)
+
+    def _build_energy(self, im0, im1, vol0, vol1, pad: int):
+        h, w = im0.shape[:2]
+        vol_pad = grid.required_volume_padding(w, h, self.unit_sizes,
+                                               self.params.guided_radius)
+        return energy_mod.build_energy(
+            im0, im1, self.params, self.max_disp, pad, vol0, vol1,
+            self.min_disp, self.max_vdisp, vol_pad=vol_pad,
+            device=self.device, vol_dtype=self.vol_dtype,
+            stats_backend=self.stats_backend)
+
+    def update_frame(self, im0_bgr, im1_bgr, vol0=None, vol1=None,
+                     seed: Optional[int] = None):
+        """Swaps a new frame of the same geometry into a finalized solver
+        (the serving path's per-frame update; JAX ``update_frame``): only
+        :attr:`data` is built again, on the device, and the configuration
+        must come out unchanged (``stats_backend="device"`` is required:
+        the "host" uint8 range depends on the volume). The layers
+        stay. Images and volumes may live on the card already; the image
+        and volume attributes follow the frame. ``seed``, when given, is
+        the next :meth:`run`'s."""
+        if self.data is None:
+            raise RuntimeError("update_frame needs finalize() first")
+        if self.stats_backend != "device":
+            raise ValueError("update_frame needs stats_backend='device' "
+                             "(a frame-independent configuration)")
+        if (int(im0_bgr.shape[0]), int(im0_bgr.shape[1])) != \
+                (self.cfg.height, self.cfg.width):
+            raise ValueError("update_frame: the frame geometry changed")
+        im0, im1 = _image(im0_bgr), _image(im1_bgr)
+        data, cfg = self._build_energy(im0, im1, vol0, vol1, self.cfg.pad)
+        if (data.vol is not None and self.data.vol is not None
+                and data.vol.shape != self.data.vol.shape):
+            raise ValueError("update_frame: the frame geometry changed "
+                             "(the volume's disparities)")
+        if dataclasses.replace(cfg, unary_backend=self.unary_backend) \
+                != self.cfg:
+            raise ValueError("update_frame: the frame changed the energy's "
+                             "configuration")
+        self.data = data
+        self.im0, self.im1 = im0, im1
+        self.vol0, self.vol1 = vol0, vol1
+        if seed is not None:
+            self.seed = seed
 
     def _sweep(self, state_m, mode: int, outer_iter: int, do_gc: bool,
                key: torch.Tensor) -> None:
@@ -414,7 +476,9 @@ class LocalExpansionSolver:
                         mode=mode)
 
     def run(self, iterations: int, view_modes: Sequence[int] = (0,),
-            pm_iterations: int = 0, fuse_with=None):
+            pm_iterations: int = 0, fuse_with=None, init_labeling=None,
+            init_mode: str = "exact", checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 0, resume_from: Optional[str] = None):
         """Full optimization (cf. ``FastGCStereo::run``) of view 0, or of
         both views with ``view_modes=(0, 1)`` (the JAX engine's default;
         the port's is view 0 alone). Returns ``(final, raw)``, unpadded
@@ -426,6 +490,24 @@ class LocalExpansionSolver:
         0, then view 1, one key step a (sweep, view), and a dual run saves
         the evaluator's consistency images after each sweep pair, where
         the evaluator has ``save_consistency``.
+
+        ``init_labeling``: an [H, W, 4] labeling (numpy or tensor) to start
+        every view from instead of the random init (the reference's
+        non-empty ``initCurrentFast``). ``init_mode`` "exact" evaluates
+        every pixel's unary under its own label (:func:`init_from_labeling`,
+        the reference's semantics); "cell" gives each layer-0 cell the
+        labeling's label at the cell's random pixel (:func:`init_step` with
+        a seed labeling, under the random init's key): one init's cost, the
+        serving path's warm start.
+
+        ``checkpoint_path`` / ``checkpoint_every``: after every
+        ``checkpoint_every`` completed sweeps (greedy and graph-cut
+        counted together) the views' padded state, the seed and the sweep
+        counters go to ``checkpoint_path`` (:mod:`..utils.checkpoint`, the
+        JAX package's format). ``resume_from``: a checkpoint to continue
+        from: its state replaces the init, the completed sweeps are
+        skipped, and the key counter restarts where it stood, so the
+        resumed run ends where an uninterrupted one does, bit for bit.
 
         ``fuse_with``: external labelings (numpy or tensors, applied to view
         0) or ``{mode: labeling}`` dicts (applied to each view they name),
@@ -442,27 +524,45 @@ class LocalExpansionSolver:
         modes = tuple(view_modes)
         if modes not in ((0,), (0, 1)):
             raise ValueError(f"view_modes {view_modes!r}: (0,) or (0, 1)")
+        if init_mode not in ("exact", "cell"):
+            raise ValueError(f"init_mode {init_mode!r}: 'exact' or 'cell'")
         self.finalize()
         root = rng.PRNGKey(self.seed)
         self._state = {}
-        for mode in modes:
-            self._state[mode] = init_step(
-                self.data, self.cfg, rng.fold_in(root, 1000 + mode),
-                unit_size=self.layers[0].unit_size, mode=mode)
-            self._evaluate(mode, 0)
+        pm_done = gc_done = 0
+        if resume_from is not None:
+            ck = checkpoint.load_checkpoint(resume_from)
+            if ck.pad != self.cfg.pad:
+                raise ValueError(f"checkpoint pad {ck.pad}: the solver's is "
+                                 f"{self.cfg.pad}")
+            for mode in modes:
+                self._state[mode] = energy_mod.state_from_numpy(
+                    ck.labeling[mode], ck.cost[mode], self.device)
+            pm_done, gc_done = ck.pm_iterations_done, ck.iterations_done
+        else:
+            for mode in modes:
+                self._state[mode] = self._init_view(root, mode, init_labeling,
+                                                    init_mode)
+                self._evaluate(mode, 0)
         if self.evaluator is not None:
             self.evaluator.start()
-        step = 0
-        for do_gc, base, sweeps, first in (
-                (False, 2000, pm_iterations, 1),
-                (True, 3000, iterations, 1 + pm_iterations)):
-            for it in range(sweeps):
+        step = len(modes) * (pm_done + gc_done)
+        for do_gc, base, done, sweeps, first in (
+                (False, 2000, pm_done, pm_iterations, 1),
+                (True, 3000, gc_done, iterations, 1 + pm_iterations)):
+            for it in range(done, sweeps):
                 for mode in modes:
                     self._sweep(self._state[mode], mode, it, do_gc,
                                 rng.fold_in(root, base + step))
                     step += 1
                     self._evaluate(mode, it + first)
                 self._save_consistency(it + first)
+                # it + first sweeps completed, greedy and graph-cut.
+                if (checkpoint_path and checkpoint_every
+                        and (it + first) % checkpoint_every == 0):
+                    self._checkpoint(checkpoint_path,
+                                     *((pm_iterations, it + 1) if do_gc
+                                       else (it + 1, 0)))
         last = iterations + 1 + pm_iterations
         if fuse_with:
             coarsest_first = tuple(reversed(range(len(self.layers))))
@@ -528,6 +628,35 @@ class LocalExpansionSolver:
                     torch.as_tensor(rmask, device=dev), cox, coy,
                     unit_size=layer.unit_size, nbx=layer.nbx, nby=layer.nby,
                     mode=mode)
+
+    def _init_view(self, root: torch.Tensor, mode: int, init_labeling,
+                   init_mode: str):
+        """View ``mode``'s padded state at the start of :meth:`run`."""
+        if init_labeling is None or init_mode == "cell":
+            seed_m = None
+            if init_labeling is not None:
+                seed_m = self._padded_labeling(init_labeling)
+            return init_step(self.data, self.cfg,
+                             rng.fold_in(root, 1000 + mode),
+                             unit_size=self.layers[0].unit_size, mode=mode,
+                             seed_labeling_m=seed_m)
+        return init_from_labeling(self.data, self.cfg, init_labeling, mode)
+
+    def _padded_labeling(self, labeling) -> torch.Tensor:
+        """An [H, W, 4] labeling in a zero [Hp, Wp, 4] canvas."""
+        h, w, p = self.cfg.height, self.cfg.width, self.cfg.pad
+        lab = torch.as_tensor(labeling, dtype=torch.float32,
+                              device=self.device)
+        out = torch.zeros((h + 2 * p, w + 2 * p, 4), dtype=torch.float32,
+                          device=self.device)
+        out[p:p + h, p:p + w] = lab
+        return out
+
+    def _checkpoint(self, path: str, pm_done: int, gc_done: int) -> None:
+        checkpoint.save_checkpoint(
+            path, {m: tuple(x.cpu().numpy() for x in st)
+                   for m, st in self._state.items()},
+            self.seed, pm_done, gc_done, self.cfg.pad)
 
     def _unpadded_labeling(self, mode: int = 0) -> torch.Tensor:
         """View ``mode``'s [H, W, 4] labeling, a view into the state."""

@@ -38,8 +38,10 @@ import numpy as np
 import torch
 
 
-def build_feature_image(image_bgr: np.ndarray, alpha: float) -> np.ndarray:
-    """The 4-channel feature image ExI, on the host.
+def build_feature_image(image_bgr, alpha: float):
+    """The 4-channel feature image ExI: a numpy array for a numpy image,
+    a tensor on the image's device for a tensor (the same float32
+    operations).
 
     Args:
       image_bgr: [H, W, 3] float32 BGR 0..255 (OpenCV's channel order, so
@@ -47,12 +49,14 @@ def build_feature_image(image_bgr: np.ndarray, alpha: float) -> np.ndarray:
     Returns:
       [H, W, 4] float32: BGR * (1 - alpha), then gx * alpha.
     """
-    img = np.asarray(image_bgr, np.float32)
-    gray = (0.114 * img[..., 0] + 0.587 * img[..., 1] + 0.299 * img[..., 2])
-    padded = np.pad(gray, ((0, 0), (1, 1)), mode="edge")
+    if not isinstance(image_bgr, torch.Tensor):
+        return build_feature_image(
+            torch.from_numpy(np.asarray(image_bgr, np.float32)), alpha).numpy()
+    img = image_bgr.to(torch.float32)
+    gray = 0.114 * img[..., 0] + 0.587 * img[..., 1] + 0.299 * img[..., 2]
+    padded = torch.cat([gray[:, :1], gray, gray[:, -1:]], dim=1)
     gx = 0.5 * (padded[:, 2:] - padded[:, :-2])
-    return np.concatenate([img * (1.0 - alpha),
-                           (gx * alpha)[..., None]], axis=-1)
+    return torch.cat([img * (1.0 - alpha), (gx * alpha)[..., None]], dim=-1)
 
 
 def slab_origin(fox: torch.Tensor, size: int, width: int, max_disp: float,

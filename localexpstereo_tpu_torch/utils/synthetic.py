@@ -26,9 +26,27 @@ import numpy as np
 def build_problem(scale: float, seed: int = 0):
     """Returns (image [h, w, 3] float32 0..255, volume [nd, h, w] float32,
     h, w, nd, truth [h, w] float32)."""
-    h = max(int(992 * scale), 64)
-    w = max(int(1436 * scale), 96)
-    nd = max(int(145 * scale), 16)
+    return planted_problem(max(int(992 * scale), 64),
+                           max(int(1436 * scale), 96),
+                           max(int(145 * scale), 16), seed)
+
+
+def pan_frames(h: int, w: int, nd: int, frames: int, step: int = 2,
+               seed: int = 0):
+    """A camera pan over :func:`planted_problem`: frame k is the columns
+    [step k, step k + w) of the problem ``step * (frames - 1)`` columns
+    wider. Returns [(image, volume, truth), ...] as contiguous arrays."""
+    img, vol, _, _, _, truth = planted_problem(h, w + step * (frames - 1),
+                                               nd, seed)
+    cols = [slice(step * k, step * k + w) for k in range(frames)]
+    return [(np.ascontiguousarray(img[:, c]),
+             np.ascontiguousarray(vol[:, :, c]),
+             np.ascontiguousarray(truth[:, c])) for c in cols]
+
+
+def planted_problem(h: int, w: int, nd: int, seed: int = 0):
+    """:func:`build_problem` at a given size: (image, volume, h, w, nd,
+    truth)."""
     rng = np.random.default_rng(seed)
 
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)

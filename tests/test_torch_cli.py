@@ -163,7 +163,6 @@ def test_flags_and_spellings():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-volume", "mccnn"], "A13"),
     (["-laneFriendly", "1"], "laneFriendly"),
 ])
 def test_unported_flags_fail_loudly(flags, item):
@@ -176,10 +175,11 @@ def test_unported_flags_fail_loudly(flags, item):
     (["-fuseSeeds", "3", "-doDual", "1"], "do_dual", True),
     (["-volPrecision", "bfloat16"], "vol_precision", "bfloat16"),
     (["-mode", "MiddV2"], "mode", "MiddV2"),
+    (["-volume", "mccnn"], "volume", "mccnn"),
 ])
 def test_ported_flags_are_taken(flags, field, value):
     """The flags the port once refused (the two views, A10; the bfloat16
-    volume; the V2 mode, A11) are taken now."""
+    volume; the V2 mode, A11; the MC-CNN volume, A13) are taken now."""
     opt = tcli.parse_args(["-mode", "MiddV3", *flags])
     assert getattr(opt, field) == value
     assert tcli.parse_args(["-mode", "MiddV3"]).do_dual is False
@@ -227,6 +227,48 @@ def test_cli_imports_no_jax(tmp_path):
     assert res.returncode == 0 and res.stdout.strip().endswith("OK"), \
         res.stderr
     assert (tmp_path / "out" / "disp0.pfm").exists()
+
+
+def test_cli_mccnn_volume_matches_jax(tmp_path):
+    """-mode MiddV3 -volume mccnn through both command lines, 1 greedy + 1
+    graph-cut sweep, on a 40 x 72 MiddV3 directory without any .acrt: a
+    rendered stereo pair (``synthetic.v2_scene``, 12 disparities) as
+    im0/im1.png, calib.txt and disp0GT.pfm. Each computes the left volume
+    with the bundled MC-CNN weights (the port on the CPU) and recovers the
+    right one; the JAX side's min-cut knobs are set to the port's (16,
+    16). The energy log within 0.002·|E| + 1e-3 per row, its bad rates
+    within 0.5 pt, disp0.pfm within 0.5 px at 99 % of the pixels."""
+    scene = tmp_path / "scene"
+    scene.mkdir()
+    im_l, im_r, truth, _ = synthetic.v2_scene(H, W, ND, seed=5)
+    png.write(str(scene / "im0.png"), im_l)
+    png.write(str(scene / "im1.png"), im_r)
+    with open(scene / "calib.txt", "w") as f:
+        f.write(f"cam0=[100 0 36; 0 100 20; 0 0 1]\nwidth={W}\n"
+                f"height={H}\nndisp={ND}\n")
+    pfm.write_pfm(str(scene / "disp0GT.pfm"), truth)
+    schedule = ["-volume", "mccnn", "-pmIterations", "1", "-iterations",
+                "1", "-seed", "0", "-warmup", "0"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jeng.LocalExpansionSolver, "_apply_cfg_overrides",
+                   lambda self, cfg: dataclasses.replace(
+                       cfg, gc_rounds=16, gc_sweeps=16))
+        assert jcli.main(["-mode", "MiddV3", "-targetDir", str(scene),
+                          "-outputDir", str(tmp_path / "jax"), "-platform",
+                          "cpu", *schedule]) == 0
+    assert tcli.main(["-mode", "MiddV3", "-targetDir", str(scene),
+                      "-outputDir", str(tmp_path / "port"), "-device", "cpu",
+                      *schedule]) == 0
+    want, got = _log(tmp_path / "jax"), _log(tmp_path / "port")
+    assert got.shape == want.shape == (1 + 1 + 1, 6)
+    for g, w in zip(got[:, 1], want[:, 1]):
+        assert abs(g - w) <= 0.002 * abs(w) + 1e-3, (got[:, 1], want[:, 1])
+    np.testing.assert_allclose(got[:, 4:], want[:, 4:], atol=0.5)
+    d_got = pfm.read_pfm(str(tmp_path / "port" / "disp0.pfm"))
+    d_want = jpfm.read_pfm(str(tmp_path / "jax" / "disp0.pfm"))
+    assert d_got.shape == (H, W) and np.isfinite(d_got).all()
+    assert (np.abs(d_got - d_want) < 0.5).mean() >= 0.99
+    assert _bad(d_got, truth, 1.0) < 50.0
 
 
 V2_H, V2_W, V2_ND = 48, 64, 16

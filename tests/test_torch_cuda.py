@@ -309,3 +309,98 @@ def test_v2_solve_on_card_matches_cpu(cuda, modes, max_vdisp):
         assert len(energies["cuda"][mode]) == len(energies["cpu"][mode])
         for got, want in zip(energies["cuda"][mode], energies["cpu"][mode]):
             assert abs(got - want) <= 0.002 * abs(want) + 1e-3, energies
+
+
+#: MC-CNN on the card against the CPU: both in full float32 (TF32 off for
+#: the card's convolutions), differing in the order of their sums.
+MCCNN_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+def test_mccnn_on_card_matches_cpu(cuda):
+    """features and cost_volume with the bundled weights on the card
+    within MCCNN_ATOL of the CPU's; cuDNN's TF32 setting is the caller's
+    again afterwards."""
+    from localexpstereo_tpu_torch.models import mccnn
+    left, right, _, _ = synthetic.v2_scene(96, 128, 32)
+    params = mccnn.load_default_params()
+    gpu = mccnn.params_from_jax(params).to(cuda)
+    cpu = mccnn.params_from_jax(params)
+    tf32 = torch.backends.cudnn.allow_tf32
+    got = mccnn.features(gpu, left)
+    assert got.device.type == "cuda"
+    assert float((got.cpu() - mccnn.features(cpu, left)).abs().max()) \
+        <= MCCNN_ATOL
+    vol = mccnn.cost_volume(gpu, left, right, 32)
+    assert vol.shape == (32, 96, 128) and vol.device.type == "cuda"
+    assert float((vol.cpu() - mccnn.cost_volume(cpu, left, right, 32))
+                 .abs().max()) <= MCCNN_ATOL
+    assert torch.backends.cudnn.allow_tf32 == tf32
+
+
+@pytest.mark.cuda
+def test_device_stats_on_card_match_cpu(cuda):
+    """compute_stats_device in float64 on the card and on the CPU: equal up
+    to the order of rounding (rtol 1e-5, atol 1e-6)."""
+    from localexpstereo_tpu_torch.ops import guided
+    img, _, _, _, _, _ = synthetic.build_problem(0.1)
+    img[10:30, 10:40] = 90.0
+    got = guided.compute_stats_device(torch.as_tensor(img, device=cuda), 10,
+                                      1e-4)
+    want = guided.compute_stats_device(torch.as_tensor(img), 10, 1e-4)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def _stream_run(device, frames, pipelined=False):
+    from localexpstereo_tpu_torch.serving import StereoStream
+    stream = StereoStream(PARAMS_GF.replace(windR=20, lambda_=0.5,
+                                            th_col=0.5),
+                          max_disp=23.0, unit_sizes=[4, 8, 16],
+                          cold_iterations=1, cold_pm_iterations=1,
+                          pipelined=pipelined, device=device)
+    energies, maps = [], []
+    for img, vol, _ in frames:
+        maps.append(stream.process(img, img, vol, vol))
+        s = stream.solver
+        energies.append(float(engine.energy_audit(s.data, s.cfg,
+                                                  *s._state[0], 0)[0]))
+    return stream, energies, maps
+
+
+@pytest.mark.cuda
+def test_stream_on_card_matches_cpu(cuda):
+    """A 3-frame StereoStream (96 x 144 x 24, a pan of 2 px a frame, the
+    device-side energy build, the "cell" warm start) on the card lands on
+    the CPU stream's energies within the trajectory tolerance, frame by
+    frame; the graph-cut sweeps launch the expansion kernel."""
+    frames = synthetic.pan_frames(96, 144, 24, 3)
+    before = mincut_cuda.expansion_accept.launches
+    _, e_gpu, maps = _stream_run(cuda, frames)
+    assert mincut_cuda.expansion_accept.launches > before
+    _, e_cpu, _ = _stream_run(torch.device("cpu"), frames)
+    for m in maps:
+        assert m.shape == (96, 144) and np.isfinite(m).all()
+    for got, want in zip(e_gpu, e_cpu):
+        assert abs(got - want) <= 0.002 * abs(want) + 1e-3, (e_gpu, e_cpu)
+
+
+@pytest.mark.cuda
+def test_pipelined_stream_on_card_equals_sync(cuda):
+    """On the card, pipelined maps (copied through pinned buffers) are
+    bitwise the sync stream's one frame later; flush() drains the last;
+    reset() returns the frame in flight."""
+    frames = synthetic.pan_frames(48, 72, 12, 3)
+    _, _, sync = _stream_run(cuda, frames)
+    stream, _, pipe = _stream_run(cuda, frames, pipelined=True)
+    assert pipe[0] is None
+    for got, want in zip(pipe[1:], sync):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(stream.flush(), sync[-1])
+    assert stream.flush() is None
+    img, vol, _ = frames[0]
+    assert stream.process(img, img, vol, vol) is None
+    assert np.isfinite(stream.reset()).all()
+    assert stream.reset() is None
