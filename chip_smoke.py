@@ -104,7 +104,29 @@ Phases, each printing JSON lines:
             the host), the energy build's seconds on the card, the 8 log
             rows, bad rates, both kernels' launches (> 0), the peak device
             memory;
-15. profile: the init + one greedy sweep on each unary route, unprofiled
+15. batch:   the batch command line (``cli/batch.py``, -mode MiddV3, 2 + 5,
+            -warmup 1, in process on the one card) over three MiddV3
+            directories: the cli phase's scene, a second one at its size
+            (another seed) and a third at 718 x 496 x 72 (two shape
+            groups), after the single-pair command line with the same
+            flags on the first scene. Prints the groups, the summary's
+            walls and each pair's load, prefetch-wait, warm-up and solve
+            seconds and expansion launches; pair 0's disparity must equal
+            the command line's bitwise, its bad1.0 within 0.5 pt and its
+            launches equal. Then the two full-size pairs through two
+            worker processes on cuda:0 (ReplicaSolver): their disparities
+            must equal the serial run's; both walls are printed;
+16. bf_interp: three solves at 360 x 248 x 37 (2 + 1, the reference's
+            layer sizing) on the card against their CPU twins: PARAMS_BF
+            (windR 6) on the dma route, and interp 0 and 2 on auto; each
+            energy (NaN unaries, which interp 2's degenerate taps leave,
+            counted as 0) after the init within 1e-4 relative and after
+            the last sweep within the trajectory tolerance, the same NaN
+            pixels; every sweep's relative difference printed.
+            Then one bilateral call at (N, F, R) = (468, 62, 20) and the
+            method sampler at the main path's layer-0 windows, timed,
+            beside the card's name and power limit;
+17. profile: the init + one greedy sweep on each unary route, unprofiled
             in turns (2 each), then the ``dma`` route's under
             torch.profiler, and one graph-cut sweep under torch.profiler:
             wall seconds, and for the profiled windows device-busy seconds,
@@ -113,10 +135,10 @@ Phases, each printing JSON lines:
             graph-cut sweep's peak device memory.
 
 A full run takes the phases in this order but runs ``small`` after
-``stream``: its CPU solves run meanwhile in a worker process that does not
-see the card. Then a ``{"kernels": [...]}`` line (launches from the
-``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream`` and
-``cli_mccnn`` runs' beside them), the
+``batch`` and ``bf_interp`` last: their CPU solves run meanwhile in two
+worker processes that do not see the card. Then a ``{"kernels": [...]}`` line (launches from the
+``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream``,
+``cli_mccnn``, ``batch`` and ``bf_interp`` runs' beside them), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -159,9 +181,9 @@ OPS_SAMPLE, OPS_GUIDED = 15, 80
 SMALL_WINDR = (6, 20)
 #: The small V3 problem's layers (also the small V2 problem's).
 SMALL_LAYERS = [4, 8, 16]
-#: Threads of the worker process that runs the small phase's CPU solves
-#: while the card runs the phases before it.
-TWIN_THREADS = 4
+#: Threads of each of the two worker processes that run the small and
+#: bf_interp phases' CPU solves while the card runs the phases before them.
+TWIN_THREADS = 3
 #: sample_windows against its plain version, by filter radius: raw costs
 #: (the same float32 operations) and guided-filtered costs on supported
 #: positions (float64 box sums in another order; the filter's inverse
@@ -186,6 +208,30 @@ MCCNN_CROP = (192, 256, 64)
 MCCNN_ATOL = 1e-5
 #: The small stream: height, width, disparities, frames.
 SMALL_STREAM = (96, 144, 24, 3)
+#: The batch phase: the second full-size scene's seed, and the third
+#: scene's scale and seed (718 x 496 x 72, a second shape group).
+BATCH_SEED_B = 1
+BATCH_SMALL = (0.5, 2)
+#: The bf_interp phase: the problem (height, width, disparities), its
+#: schedule (greedy, graph-cut sweeps: the bilateral CPU twin of 2 + 1
+#: takes 260 s on 8 threads, its graph-cut sweep most of it), each solve's
+#: (name, unary route, interp), the bilateral solve's windR (a windR 20
+#: bilateral twin would take most of an hour), the relative tolerance of
+#: the card's init energy against its CPU twin's (the same labels through
+#: the whole unary), and the one timed bilateral call (N, F, R: layer 0 of
+#: the main path). The sweeps' energies are held to the trajectory
+#: tolerance (_close) after the last sweep: near-ties that rounding decides
+#: part the card's bilateral solve from the CPU's by up to 0.29 % after a
+#: greedy sweep (PERF.md §6).
+BF_SHAPE = (248, 360, 37)
+BF_SCHEDULE = (2, 1)
+BF_CASES = (("bf", "dma", 1), ("interp0", "auto", 0), ("interp2", "auto", 2))
+BF_WINDR = 6
+BF_RTOL = 1e-4
+BF_TIMED = (468, 62, 20)
+#: float32 operations of one bilateral tap (3 differences, 3 absolute
+#: values, 2 adds, the division and exp, 2 products, 2 sums).
+OPS_BILATERAL_TAP = 14
 
 
 def emit(obj) -> None:
@@ -994,11 +1040,13 @@ def phase_profile(torch):
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
 
-def write_midv3_scene(target: pathlib.Path):
-    """The 1436 x 992 x 145 synthetic problem as a MiddV3 directory:
-    im0/im1.png (the image as uint8), calib.txt, im0.acrt, disp0GT.pfm."""
+def write_midv3_scene(target: pathlib.Path, scale: float = 1.0,
+                      seed: int = 0):
+    """The synthetic problem (1436 x 992 x 145 at scale 1.0) of ``seed`` as
+    a MiddV3 directory: im0/im1.png (the image as uint8), calib.txt,
+    im0.acrt, disp0GT.pfm."""
     from localexpstereo_tpu_torch.utils import acrt, pfm, png, synthetic
-    img, vol, h, w, nd, truth = synthetic.build_problem(1.0)
+    img, vol, h, w, nd, truth = synthetic.build_problem(scale, seed)
     target.mkdir(parents=True)
     for name in ("im0.png", "im1.png"):
         png.write(str(target / name), img.astype(np.uint8))
@@ -1626,8 +1674,294 @@ def phase_cli_mccnn(torch):
     return row
 
 
+def batch_scenes():
+    """The batch phase's three MiddV3 directories, written at first use:
+    the cli phase's scene, a second one at its shape (another seed) and a
+    third at half its size. Returns (paths, seconds spent writing now)."""
+    scene, _, write_s = cli_scene()
+    t0 = time.perf_counter()
+    scenes = [scene, CLI_DIR / "scene_b", CLI_DIR / "scene_q"]
+    for target, (scale, seed) in zip(scenes[1:], ((1.0, BATCH_SEED_B),
+                                                  BATCH_SMALL)):
+        if not target.exists():
+            write_midv3_scene(target, scale, seed)
+    return scenes, write_s + time.perf_counter() - t0
+
+
+def phase_batch(torch):
+    """The batch command line (-mode MiddV3, 2 + 5, -warmup 1, one card: in
+    process) on three directories in two shape groups, held against the
+    single-pair command line with the same flags on pair 0's scene (equal
+    disparity, bad1.0 within 0.5 pt, equal expansion launches); then the
+    two full-size pairs again through two worker processes on cuda:0
+    (ReplicaSolver, the batch command's parameters), their disparities equal to
+    the serial run's."""
+    from localexpstereo_tpu_torch.cli import batch
+    from localexpstereo_tpu_torch.cli import main as cli_main
+    from localexpstereo_tpu_torch.config import PARAMS_GF
+    from localexpstereo_tpu_torch.parallel.replica import ReplicaSolver
+    from localexpstereo_tpu_torch.utils import datasets, pfm
+    from localexpstereo_tpu_torch.utils.prefetch import PairPrefetcher
+    scenes, write_s = batch_scenes()
+    truth = pfm.read_pfm(str(scenes[0] / "disp0GT.pfm"))
+    fns = kernel_launches()
+    for fn in fns.values():
+        fn.launches = 0
+    cli_wall, _, cli_time, cli_disp = run_cli(["-device", "cuda"],
+                                              CLI_DIR / "batch_cli")
+    cli_launches = fns["expansion_accept"].launches
+    for fn in fns.values():
+        fn.launches = 0
+    out = CLI_DIR / "batch"
+    t0 = time.perf_counter()
+    if batch.main(["-mode", "MiddV3", "-targetDirs", *map(str, scenes),
+                   "-outputDir", str(out), "-device", "cuda"]) != 0:
+        raise AssertionError("the batch command line failed")
+    batch_wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    summary = json.loads((out / "batch_summary.json").read_text())
+    disps = [pfm.read_pfm(str(out / p.name / "disp0.pfm")) for p in scenes]
+    pair_launches = [ln["expansion_accept"] for g in summary["groups"]
+                     for ln in g["launches"]]
+
+    # The two full-size pairs on two worker processes of one card.
+    dirs = [str(p) for p in scenes[:2]]
+    pairs = [datasets.load_data(d) for d in dirs]
+    prefetcher = PairPrefetcher(dirs, load_volumes=True)
+    rs = ReplicaSolver(
+        [p.im0 for p in pairs], [p.im1 for p in pairs],
+        PARAMS_GF.replace(windR=20, lambda_=0.5, th_col=0.5),
+        pairs[0].max_disparity, cli_main.v3_layers(pairs[0].im0.shape[1]),
+        devices=["cuda:0", "cuda:0"], volumes=prefetcher.volumes(), seed=0)
+    rs.precompile((0,), 2, 5)
+    t0 = time.perf_counter()
+    rs.run(5, (0,), 2)
+    stats = [rs.pair_stats(b) for b in range(2)]
+    workers_wall = (time.perf_counter() - t0
+                    - max(st["warmup_s"] for st in stats))
+    worker_disps = rs.disparities()
+    full = summary["groups"][0]
+    # From the first timed solve's start to the last one's end: the two
+    # solves' overlap, without the workers' start-up and warm-ups.
+    span = (max(st["solve_at"][1] for st in stats)
+            - min(st["solve_at"][0] for st in stats))
+    row = {"phase": "batch",
+           "argv": "-mode MiddV3 -device cuda (2 + 5, -warmup 1)",
+           "scenes": [p.name for p in scenes], "scene_write_s": write_s,
+           "groups": [[g["shape"], g["datasets"]] for g in summary["groups"]],
+           "wall_s": [g["wall_s"] for g in summary["groups"]],
+           "amortized_s_per_frame": [g["amortized_s_per_frame"]
+                                     for g in summary["groups"]],
+           "warmup_s": [g["warmup_s"] for g in summary["groups"]],
+           "solve_s": [g["solve_s"] for g in summary["groups"]],
+           "load_s": [g["load_s"] for g in summary["groups"]],
+           "prefetch_wait_s": [g["prefetch_wait_s"]
+                               for g in summary["groups"]],
+           "command_wall_s": batch_wall,
+           "time_txt": [float((out / p.name / "time.txt").read_text())
+                        for p in scenes],
+           "expansion_accept_per_pair": pair_launches,
+           "cli_expansion_accept": cli_launches, "launches": launches,
+           "cli_wall_s": cli_wall, "cli_time_txt": cli_time,
+           "pair0_max_abs_diff_vs_cli": float(np.abs(disps[0]
+                                                     - cli_disp).max()),
+           "bad1_pair0": disparity_bad(disps[0], truth, 1.0),
+           "bad1_cli": disparity_bad(cli_disp, truth, 1.0),
+           "workers": {"devices": ["cuda:0", "cuda:0"],
+                       "wall_s": workers_wall, "solve_span_s": span,
+                       "serial_wall_s": full["wall_s"],
+                       "solve_s": [st["solve_s"] for st in stats],
+                       "serial_solve_s": full["solve_s"],
+                       "warmup_s": [st["warmup_s"] for st in stats],
+                       "equal_to_serial": [bool(np.array_equal(a, b)) for
+                                           a, b in zip(worker_disps, disps)]},
+           "nvidia_smi": smi_line()}
+    emit(row)
+    if [len(g["datasets"]) for g in summary["groups"]] != [2, 1]:
+        raise AssertionError(f"expected two shape groups: {row['groups']}")
+    for disp, scene in zip(disps, scenes):
+        check_disparity(disp, pfm.read_pfm(str(scene / "disp0GT.pfm")).shape)
+    if row["pair0_max_abs_diff_vs_cli"] != 0.0:
+        raise AssertionError("pair 0 differs from the command line's solve")
+    if abs(row["bad1_pair0"] - row["bad1_cli"]) > 0.5:
+        raise AssertionError("pair 0's bad1.0 is off the command line's")
+    if pair_launches[0] != cli_launches or min(pair_launches) == 0:
+        raise AssertionError(f"expansion_accept launches a pair "
+                             f"{pair_launches} against the command line's "
+                             f"{cli_launches}")
+    if not all(row["workers"]["equal_to_serial"]):
+        raise AssertionError("the worker processes' disparities differ "
+                             "from the serial run's")
+    return row
+
+
+class FiniteRecorder:
+    """Evaluator hook: view 0's energy after the init and each sweep, with
+    NaN unaries counted as 0 (interp 2's degenerate taps leave some), and
+    the NaN pixels."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.energies, self.nan_pixels = [], []
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def evaluate(self, solver, labeling_m, cost_m, mode, index):
+        from localexpstereo_tpu_torch.models import engine
+        nan = self.torch.isnan(cost_m)
+        e = engine.energy_audit(solver.data, solver.cfg, labeling_m,
+                                cost_m.masked_fill(nan, 0.0), mode)
+        self.energies.append(float(e[0]))
+        self.nan_pixels.append(int(nan.sum()))
+
+
+def bf_interp_solve(torch, device, case):
+    """One bf_interp solve (BF_SHAPE, BF_SCHEDULE, the reference's layer
+    sizing) of ``case`` on ``device``: its energies, NaN pixels, wall
+    seconds and kernel launches."""
+    from localexpstereo_tpu_torch.cli import main as cli_main
+    from localexpstereo_tpu_torch.config import PARAMS_BF, PARAMS_GF
+    from localexpstereo_tpu_torch.models import engine
+    from localexpstereo_tpu_torch.utils import synthetic
+    name, route, interp = case
+    h, w, nd = BF_SHAPE
+    img, vol, _, _, _, _ = synthetic.planted_problem(h, w, nd)
+    params = (PARAMS_BF.replace(windR=BF_WINDR, th_col=0.5) if name == "bf"
+              else PARAMS_GF.replace(windR=20, lambda_=0.5, th_col=0.5))
+    solver = engine.LocalExpansionSolver(
+        img, img, params, float(nd - 1), vol0=vol, vol1=vol, device=device,
+        unary_backend=route, interp=interp)
+    for i, s in enumerate(cli_main.v3_layers(w)):
+        solver.add_layer(s, engine.LAYER0_PROPOSERS if i == 0
+                         else engine.COARSE_PROPOSERS)
+    rec = FiniteRecorder(torch)
+    solver.set_evaluator(rec)
+    fns = kernel_launches()
+    before = {k: fn.launches for k, fn in fns.items()}
+    t0 = time.perf_counter()
+    solver.run(iterations=BF_SCHEDULE[1], pm_iterations=BF_SCHEDULE[0])
+    wall_s = time.perf_counter() - t0
+    return {"energies": rec.energies, "nan_pixels": rec.nan_pixels,
+            "wall_s": wall_s,
+            "launches": {k: fn.launches - before[k] for k, fn in fns.items()}}
+
+
+def bf_twins_worker():
+    """The bf_interp solves on the CPU, in a worker process that does not
+    see the card (main() runs it beside twins_worker)."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    torch.set_num_threads(TWIN_THREADS)
+    return {case[0]: bf_interp_solve(torch, "cpu", case) for case in BF_CASES}
+
+
+def phase_bf_interp(torch, twins=None):
+    """The bilateral filter and d-interpolation methods 0 and 2: three
+    solves on the card against their CPU twins (computed here unless
+    given): the init's energy within BF_RTOL relative, the last sweep's
+    within the trajectory tolerance, the same NaN pixels; then one
+    bilateral call at layer 0's shape of the main path and the method
+    sampler at that layer's windows, timed."""
+    twins = twins or {case[0]: bf_interp_solve(torch, "cpu", case)
+                      for case in BF_CASES}
+    rows = []
+    for case in BF_CASES:
+        got = bf_interp_solve(torch, "cuda", case)
+        want = twins[case[0]]
+        rel = [abs(a - b) / max(abs(b), 1e-12)
+               for a, b in zip(got["energies"], want["energies"])]
+        ok = (len(got["energies"]) == len(want["energies"])
+              == 1 + sum(BF_SCHEDULE)
+              and rel[0] <= BF_RTOL
+              and _close(got["energies"][-1:], want["energies"][-1:])
+              and got["nan_pixels"] == want["nan_pixels"]
+              and (got["nan_pixels"][-1] > 0) == (case[2] == 2)
+              and got["launches"]["expansion_accept"] > 0
+              and (got["launches"]["sample_windows"] > 0)
+              == (case[1] == "dma"))
+        row = {"phase": "bf_interp", "case": case[0], "route": case[1],
+               "interp": case[2], "shape": list(BF_SHAPE),
+               "energies_cuda": got["energies"],
+               "energies_cpu": want["energies"],
+               "nan_pixels_cuda": got["nan_pixels"],
+               "nan_pixels_cpu": want["nan_pixels"], "rel_diff": rel,
+               "init_rtol": BF_RTOL, "wall_s_cuda": got["wall_s"],
+               "wall_s_cpu": want["wall_s"], "launches": got["launches"],
+               "agree": ok}
+        emit(row)
+        rows.append(row)
+        if not ok:
+            raise AssertionError(f"bf_interp {case[0]}: the card's solve "
+                                 f"disagrees with the CPU's")
+    rows.append(bf_interp_times(torch))
+    return rows
+
+
+def bf_interp_times(torch):
+    """One bilateral call at (N, F, R) = BF_TIMED on the card, and the
+    method sampler (methods 0, 1, 2) and the engine's tent at the main
+    path's layer-0 windows of the 1436 x 992 x 145 problem, timed (CUDA
+    events) with their bounds."""
+    from localexpstereo_tpu_torch.ops import bilateral, unary_volume
+    from localexpstereo_tpu_torch.utils import synthetic
+    n, f, r = BF_TIMED
+    rng = np.random.default_rng(0)
+    p = torch.rand((n, f, f), device="cuda")
+    guide = torch.rand((n, f, f, 3), device="cuda") * 255.0
+    mask = (torch.rand((n, f, f), device="cuda") > 0.1).float()
+    torch.cuda.reset_peak_memory_stats()
+    bil_ms = time_ms(torch, lambda: bilateral.filter_windows(
+        p, guide, mask, r, 10.0), 3)
+    bil_bound = bound(n * f * f * 4 * (1 + 3 + 1 + 1),
+                      n * f * f * (2 * r + 1) ** 2 * OPS_BILATERAL_TAP)
+    bil_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # The card against the CPU on a slice (float64 sums and exp).
+    part = [x[:6].contiguous() for x in (p, guide, mask)]
+    on_card = bilateral.filter_windows(*part, r, 10.0).cpu()
+    on_cpu = bilateral.filter_windows(*[x.cpu() for x in part], r, 10.0)
+    bil_err = float((on_card - on_cpu).abs().max())
+    bil_bitwise = float((on_card == on_cpu).double().mean())
+    del p, guide, mask, part
+    solver, truth, _ = synthetic.bench_solver(1.0, "cuda")
+    solver.finalize()
+    data, cfg = solver.data, solver.cfg
+    layer = solver.layers[0]
+    props, fox, foy, fw = synthetic.unary_windows(solver, truth, layer, rng)
+    args = (data.vol[0], cfg.vol_pad, props, fox, foy, fw, cfg.height,
+            cfg.width)
+    kw = dict(min_disp=cfg.min_disp, th_col=cfg.params.th_col,
+              scale=cfg.vol_scale, zero=cfg.vol_zero)
+    px = props.shape[0] * fw * fw
+    methods = {}
+    for method, taps in ((0, 1), (1, 4), (2, 5)):
+        ms = time_ms(torch, lambda: unary_volume.sample_windows(
+            *args, max_disp=cfg.max_disp, method=method, **kw), 5)
+        methods[str(method)] = {"ms": ms, "bound_ms": bound(
+            px * (4 + taps), px * (OPS_SAMPLE + 4 * taps))[0]}
+    methods["tent"] = {"ms": time_ms(torch, lambda: (
+        unary_volume.sample_windows_aligned(*args, **kw)), 5)}
+    del solver, data
+    torch.cuda.empty_cache()
+    row = {"phase": "bf_interp", "bilateral": {
+        "N": n, "F": f, "R": r, "ms": bil_ms, "bound_ms": bil_bound[0],
+        "bound_by": bil_bound[1], "peak_gib": bil_peak,
+        "cuda_vs_cpu_max_abs_err": bil_err,
+        "cuda_vs_cpu_bitwise": bil_bitwise},
+        "sample_windows": {"F": fw, "N": int(props.shape[0]),
+                           "methods": methods},
+        "nvidia_smi": smi_line()}
+    emit(row)
+    return row
+
+
 PHASES = ("kernel", "mincut_kernel", "unary_kernel", "small", "slice", "cli",
-          "fuse", "dual", "v2", "mccnn", "stream", "cli_mccnn", "profile")
+          "fuse", "dual", "v2", "mccnn", "stream", "cli_mccnn", "batch",
+          "bf_interp", "profile")
 
 
 def main(argv) -> int:
@@ -1658,10 +1992,11 @@ def main(argv) -> int:
             out = fn(torch, *args, **kwargs)
             seconds[name] = time.perf_counter() - t0
             return out
-        # The small phase's CPU solves run in a worker while the card runs
-        # the phases before it.
-        pool = multiprocessing.get_context("spawn").Pool(1)
+        # The small and bf_interp phases' CPU solves run in two workers
+        # while the card runs the phases before them.
+        pool = multiprocessing.get_context("spawn").Pool(2)
         twins = pool.apply_async(twins_worker)
+        bf_twins = pool.apply_async(bf_twins_worker)
         pool.close()
         rows = timed("kernel", phase_kernel)
         mrows = timed("mincut_kernel", phase_mincut_kernel)
@@ -1674,11 +2009,16 @@ def main(argv) -> int:
         timed("mccnn", phase_mccnn)
         stream_row = timed("stream", phase_stream)
         mccnn_cli_row = timed("cli_mccnn", phase_cli_mccnn)
+        batch_row = timed("batch", phase_batch)
         t0 = time.perf_counter()
         twins = twins.get()
         seconds["small_twins_wait"] = time.perf_counter() - t0
         timed("small", phase_small, twins)
         timed("profile", phase_profile)
+        t0 = time.perf_counter()
+        bf_twins = bf_twins.get()
+        seconds["bf_interp_twins_wait"] = time.perf_counter() - t0
+        bf_rows = timed("bf_interp", phase_bf_interp, bf_twins)
         emit({"phase_seconds": seconds})
     finally:
         if pool is not None:
@@ -1703,6 +2043,9 @@ def main(argv) -> int:
          "launches_stream": stream_row["launches"]["expansion_accept"],
          "launches_cli_mccnn": mccnn_cli_row["launches"]["expansion_accept"],
          "launches_slice": first["expansion_accept_launches"],
+         "launches_batch": batch_row["launches"]["expansion_accept"],
+         "launches_bf_interp": sum(r["launches"]["expansion_accept"]
+                                   for r in bf_rows[:-1]),
          **kernel_entry([r for r in rows if r["path"] == "v3"]),
          "v2": kernel_entry([r for r in rows if r["path"] == "v2"])},
         {"name": "sample_windows", "route": "cuda",
@@ -1712,6 +2055,8 @@ def main(argv) -> int:
          "launches_cli": cli_row["launches"]["sample_windows"],
          "launches_dual": dual_row["launches"]["sample_windows"],
          "launches_cli_mccnn": mccnn_cli_row["launches"]["sample_windows"],
+         "launches_batch": batch_row["launches"]["sample_windows"],
+         "launches_bf_interp": bf_rows[0]["launches"]["sample_windows"],
          **kernel_entry(gf),
          "max_abs_err": max(r["max_abs_err"] for r in urows)},
         {"name": "mincut_accept", "route": "cuda",

@@ -150,8 +150,11 @@ __global__ void __launch_bounds__(kMaxThreads) expansion_accept_kernel(
       r.capfw(i)[p] = fw;
     }
     const float nu = sigma - plane(kT1)[p];
-    r.e()[p] = fmaxf(nu, 0.0f);
-    r.capt()[p] = fmaxf(-nu, 0.0f);
+    // max(nu, 0) that keeps a NaN (torch.clamp's, and the JAX package's
+    // maximum): a NaN unary (interp 2's degenerate taps) leaves its node
+    // inert, as in the plain version, instead of a node of excess 0.
+    r.e()[p] = nu != nu ? nu : fmaxf(nu, 0.0f);
+    r.capt()[p] = nu != nu ? nu : fmaxf(-nu, 0.0f);
   }
   t.sync();
 
@@ -167,7 +170,10 @@ __global__ void __launch_bounds__(kMaxThreads) expansion_accept_kernel(
     int x, y;
     r.xy(p, &x, &y);
     const float xm = accepted(p);
-    float contrib = (plane(kT1)[p] - plane(kT0)[p]) * xm;
+    // The unary change of accepted pixels only, selected as the JAX
+    // engine's compiled guard selects it: a non-finite unary elsewhere
+    // leaves the sum finite (mincut.move_energy_delta).
+    float contrib = xm > 0.5f ? plane(kT1)[p] - plane(kT0)[p] : 0.0f;
     for (int i = 0; i < 4; ++i) {
       const int dx = kNbDx[kFwd[i]], dy = kNbDy[kFwd[i]];
       const bool in = r.inside(x + dx, y + dy);

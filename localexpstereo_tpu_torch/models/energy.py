@@ -8,10 +8,18 @@ energy (``CostVolumeEnergy``, kind "volume") and the V2 image-warp energy
   where windows are cut from them, all on one device;
 - :class:`EnergyConfig`: the static configuration, including the unary
   route of the volume kind: ``"auto"`` (the plain 2-tap sampler, then the
-  guided filter on statistic windows the caller cuts) or ``"dma"`` (the
-  fused sampling + filter of :mod:`..ops.unary_cuda`, which reads the
-  statistics itself). The naive kind has one route, whatever the setting:
-  the warp sampler of :mod:`..ops.unary_warp`, then the guided filter.
+  filter on statistic windows the caller cuts) or ``"dma"`` (the fused
+  sampling + guided filter of :mod:`..ops.unary_cuda`, which reads the
+  statistics itself; under the bilateral filter it samples only), and
+  the volume's d-interpolation (``interp``: methods 0 and 2 take the
+  plain method sampler on either route). The naive kind has one route,
+  whatever the setting: the warp sampler of :mod:`..ops.unary_warp`,
+  then the filter.
+
+The filter is the parameters' ``filter_name``: the guided filter ("GF",
+"GFfloat"; :mod:`..ops.guided`) at radius ``windR // 2`` or the joint
+bilateral filter ("BF", "BL"; :mod:`..ops.bilateral`) at radius ``windR``
+on the same windows.
 
 Windows are fixed-shape slices of the margin-padded arrays; out-of-image
 pixels are handled by masks, never by clipping.
@@ -25,8 +33,8 @@ import numpy as np
 import torch
 
 from ..config import COST_FOR_INVALID, Parameters
-from ..ops import (guided, pairwise, unary_cuda, unary_volume, unary_warp,
-                   validity, windows)
+from ..ops import (bilateral, guided, pairwise, unary_cuda, unary_volume,
+                   unary_warp, validity, windows)
 
 
 class EnergyData(NamedTuple):
@@ -48,8 +56,7 @@ class EnergyData(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class EnergyConfig:
-    """Static energy configuration (linear d-interpolation for the volume
-    kind)."""
+    """Static energy configuration."""
 
     width: int
     height: int
@@ -67,20 +74,35 @@ class EnergyConfig:
     unary_backend: str = "auto"
     #: "volume" (V3 cost volumes) or "naive" (V2 image warp).
     kind: str = "volume"
+    #: The volume's d-interpolation (``CostVolumeEnergy.h:45-48``): 0
+    #: nearest, 1 linear, 2 quadratic.
+    interp: int = 1
+
+
+def _guided(cfg: EnergyConfig) -> bool:
+    return cfg.params.filter_name in ("GF", "GFfloat")
 
 
 def fused_unary(cfg: EnergyConfig) -> bool:
-    """Whether the sweeps' unary runs the fused sampling + guided-filter
-    kernel, which reads the statistics itself (no statistic windows are
-    cut): the "dma" route of the volume kind. The one routing point of the
-    unary."""
-    return cfg.kind == "volume" and cfg.unary_backend == "dma"
+    """Whether the sweeps' unary runs the fused sampling kernel: the "dma"
+    route of the volume kind with linear interpolation (the kernel's only
+    method). The one routing point of the unary."""
+    return (cfg.kind == "volume" and cfg.unary_backend == "dma"
+            and cfg.interp == 1)
+
+
+def kernel_filters(cfg: EnergyConfig) -> bool:
+    """Whether the fused kernel also runs the filter, reading the
+    statistics itself (the sweeps then cut no statistic windows): the
+    guided filter on the :func:`fused_unary` route."""
+    return fused_unary(cfg) and _guided(cfg)
 
 
 def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
                  pad: int, vol0=None, vol1=None, min_disp: float = 0.0,
                  max_vdisp: float = 0.0, vol_pad: int = 0, device="cuda",
-                 vol_dtype: str = "uint8", stats_backend: str = "host"):
+                 vol_dtype: str = "uint8", stats_backend: str = "host",
+                 interp: int = 1):
     """Builds (EnergyData, EnergyConfig) for one stereo pair on ``device``
     (the card unless the caller asks for the CPU; see
     :func:`resolve_device`), from images and volumes given as numpy arrays
@@ -91,7 +113,8 @@ def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
     With cost volumes ([D, H, W] each) the energy is of the volume kind
     (``main.cpp:386``); they are stored uint8-quantized (``vol_dtype``
     "uint8", the JAX package's default), as bfloat16 (float32 rounded to
-    nearest even, as the JAX package's ``astype``) or as float32. Without
+    nearest even, as the JAX package's ``astype``) or as float32, and
+    sampled by d-interpolation method ``interp``. Without
     them it is of the naive kind: the feature images of both views
     (``vol_pad`` and ``vol_dtype`` are not used).
 
@@ -123,7 +146,7 @@ def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
             im, params.omega, params.epsilon), pad, 1))
     cfg = EnergyConfig(width=w, height=h, pad=pad, params=params,
                        min_disp=min_disp, max_disp=max_disp,
-                       max_vdisp=max_vdisp)
+                       max_vdisp=max_vdisp, interp=int(interp))
     vol = exi = None
     if vol0 is None:
         cfg = dataclasses.replace(cfg, kind="naive")
@@ -240,7 +263,7 @@ def energy_from_numpy(data, cfg, device="cuda"):
     ``exi`` is padded by ``cfg.exi_pad``, which is cropped here); ``cfg``
     any object with the attributes ``kind, width, height, pad, params,
     min_disp, max_disp, max_vdisp, vol_pad, vol_scale, vol_zero,
-    exi_pad`` (its ``params`` a dataclass with the fields of
+    exi_pad, interp`` (its ``params`` a dataclass with the fields of
     :class:`Parameters`). Returns the port's (EnergyData, EnergyConfig,
     with the "auto" unary route) on ``device``."""
     params = Parameters(**dataclasses.asdict(cfg.params))
@@ -250,7 +273,8 @@ def energy_from_numpy(data, cfg, device="cuda"):
         params=params, min_disp=float(cfg.min_disp),
         max_disp=float(cfg.max_disp), max_vdisp=float(cfg.max_vdisp),
         vol_pad=int(cfg.vol_pad), vol_scale=float(cfg.vol_scale),
-        vol_zero=float(cfg.vol_zero), kind=str(cfg.kind))
+        vol_zero=float(cfg.vol_zero), kind=str(cfg.kind),
+        interp=int(cfg.interp))
     device = resolve_device(device)
     arrays = [np.asarray(getattr(data, k)) for k in
               ("guide", "gf_mean", "gf_inv", "coeff8")]
@@ -304,27 +328,31 @@ def dense_filter_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
 def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
                   proposals: torch.Tensor, ox: torch.Tensor,
                   oy: torch.Tensor, target_off: int, target_size: int,
-                  stat_windows, clamp_slabs: bool = True) -> torch.Tensor:
+                  stat_windows, clamp_slabs: bool = True,
+                  kernel: bool = False) -> torch.Tensor:
     """Filtered unary costs of ``proposals`` over their target windows
     (``CostVolumeEnergy.h:55-183`` / ``StereoEnergy.h:694-753``): raw cost
-    on the filter window (target + R margin), guided-filter aggregation,
-    the target crop, and the validity clamp to ``COST_FOR_INVALID``.
+    on the filter window (target + R margin, R = ``windR // 2``), the
+    filter (guided at radius R, bilateral at ``windR``), the target crop,
+    and the validity clamp to ``COST_FOR_INVALID``.
 
     Args:
       mode: 0 = left view, 1 = right.
       ox, oy: [N] global coords of the regions' unit origins.
       target_off: target window offset from the unit origin (-s for shared
         windows, 0 for init-time unit windows); target_size: 3s or s.
-      stat_windows: from :func:`dense_filter_windows` for the same regions:
-        the plain sampler, then the guided filter on these windows. None
-        selects the fused route of the volume kind,
-        :func:`..ops.unary_cuda.sample_windows`, which reads the statistics
-        itself (see :func:`fused_unary`).
+      stat_windows: from :func:`dense_filter_windows` for the same regions
+        (the filters read them); None where the fused kernel filters
+        (:func:`kernel_filters`), which reads the statistics itself.
       clamp_slabs: naive kind with v = 0: where the other view's slab of
         each window starts (:func:`..ops.unary_warp.slab_origin`). True is
         the JAX package's init and warm start, False its sweeps. The two
         differ only where a plane leaves [0, max_disp] near the image's
         border.
+      kernel: a sweep's color step, which samples by the fused kernel,
+        :func:`..ops.unary_cuda.sample_windows`, where :func:`fused_unary`
+        says so (the JAX engine's ``vol_dma``); else the plain sampler of
+        the energy's kind and ``interp``, as the JAX init always does.
     Returns:
       [N, T, T] float32 costs (0 outside the image).
     """
@@ -332,34 +360,46 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
     fsize = target_size + 2 * r
     foff = target_off - r
     fox, foy = ox + foff, oy + foff
-    gf = cfg.params.filter_name in ("GF", "GFfloat")
-    if cfg.params.filter_name and not gf:
-        raise NotImplementedError(
-            f"filter {cfg.params.filter_name!r} needs the bilateral filter "
-            f"(ops/bilateral.py), not ported yet (ROADMAP A12)")
-    if stat_windows is None:
-        if cfg.kind != "volume":
-            raise ValueError("the naive energy has no fused unary route: "
-                             "pass its statistic windows")
+    fused = kernel and fused_unary(cfg)
+    in_kernel = kernel and kernel_filters(cfg)
+    if stat_windows is None and cfg.params.filter_name and not in_kernel:
+        raise ValueError(
+            f"no fused unary route filters this call (the {cfg.kind} "
+            f"energy, filter {cfg.params.filter_name!r}, interp "
+            f"{cfg.interp}): pass its statistic windows")
+    if fused:
         q = unary_cuda.sample_windows(
             data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
             cfg.height, cfg.width, min_disp=cfg.min_disp,
             th_col=cfg.params.th_col, scale=cfg.vol_scale, zero=cfg.vol_zero,
             stats=((data.guide[mode], data.gf_mean[mode], data.gf_inv[mode])
-                   if gf else None), pad=cfg.pad, r_gf=r if gf else 0)
+                   if in_kernel else None), pad=cfg.pad,
+            r_gf=r if in_kernel else 0)
+    elif cfg.kind == "volume" and cfg.interp == 1:
+        q = unary_volume.sample_windows_aligned(
+            data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
+            cfg.height, cfg.width, min_disp=cfg.min_disp,
+            th_col=cfg.params.th_col, scale=cfg.vol_scale,
+            zero=cfg.vol_zero)
+    elif cfg.kind == "volume":
+        q = unary_volume.sample_windows(
+            data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
+            cfg.height, cfg.width, min_disp=cfg.min_disp,
+            max_disp=cfg.max_disp, th_col=cfg.params.th_col,
+            method=cfg.interp, scale=cfg.vol_scale, zero=cfg.vol_zero)
     else:
-        if cfg.kind == "volume":
-            q = unary_volume.sample_windows_aligned(
-                data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
-                cfg.height, cfg.width, min_disp=cfg.min_disp,
-                th_col=cfg.params.th_col, scale=cfg.vol_scale,
-                zero=cfg.vol_zero)
-        else:
-            q = _warp_windows(data, cfg, mode, proposals, fox, foy, fsize,
-                              clamp_slabs)
-        if gf:
-            gwin, mwin, iwin, fmask = stat_windows
-            q = guided.filter_windows(q, gwin, mwin, iwin, fmask, r)
+        q = _warp_windows(data, cfg, mode, proposals, fox, foy, fsize,
+                          clamp_slabs)
+    if _guided(cfg) and not in_kernel:
+        gwin, mwin, iwin, fmask = stat_windows
+        q = guided.filter_windows(q, gwin, mwin, iwin, fmask, r)
+    elif cfg.params.filter_name in ("BF", "BL"):
+        # The raw 0..255 guide (GuidedFilter.h:329-374): the scaled guide
+        # windows, scaled back.
+        gwin, _, _, fmask = stat_windows
+        q = bilateral.filter_windows(q, gwin * 255.0, fmask,
+                                     cfg.params.windR,
+                                     cfg.params.filter_param1)
     q = q[:, r:r + target_size, r:r + target_size]
     valid = validity.valid_windows(proposals, ox + target_off,
                                    oy + target_off, target_size,

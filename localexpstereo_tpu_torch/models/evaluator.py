@@ -60,6 +60,18 @@ class Evaluator:
         self._fp.write("Time\tEng\tData\tSmooth\tall\tnonocc\n")
         self._fp.flush()
 
+    def __getstate__(self):
+        """Picklable (a replica worker evaluates its pairs in its own
+        process): the log file travels by name and is reopened to append."""
+        state = self.__dict__.copy()
+        state["_fp"] = self._fp is not None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._fp = (open(os.path.join(self.save_dir, "log_output.txt"), "a")
+                    if state["_fp"] else None)
+
     def set_precision(self, precision: float):
         """GT quantization precision; <= 0 disables (``main.cpp:292,381``)."""
         self.qprecision = precision

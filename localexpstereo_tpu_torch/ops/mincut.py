@@ -258,10 +258,14 @@ def fusion_move_energy_delta(accept: torch.Tensor, t0, t1, c00, c01, c10,
 
 def _energy_delta(accept, t0, t1, tables):
     """Energy change of ``accept`` against all-keep, with the pairwise
-    tables (c00, c01, c10[, c11]) summed in that order."""
+    tables (c00, c01, c10[, c11]) summed in that order. The unary change
+    counts on accepted pixels only, selected rather than multiplied by the
+    mask (as the JAX engine's compiled guard does): the same sum for finite
+    unaries, and a non-finite one outside the accepted pixels (the
+    quadratic interpolation's degenerate taps) leaves the delta finite."""
     em = edge_masks(t0.shape[-1], t0.device)
     x = accept.to(torch.float32)
-    delta = torch.sum((t1 - t0) * x, dim=(-2, -1))
+    delta = torch.sum(torch.where(accept, t1 - t0, 0.0), dim=(-2, -1))
     for k, (dx, dy) in enumerate(EDGE_DIRS):
         xq = shift(x, dx, dy, 0.0)
         states = ((1 - x) * (1 - xq), (1 - x) * xq, x * (1 - xq), x * xq)

@@ -404,3 +404,86 @@ def test_pipelined_stream_on_card_equals_sync(cuda):
     assert stream.process(img, img, vol, vol) is None
     assert np.isfinite(stream.reset()).all()
     assert stream.reset() is None
+
+
+@pytest.mark.cuda
+def test_expansion_guard_selects_accepted_unaries(cuda):
+    """A NaN unary where the move keeps its label leaves the kernel's
+    guard finite, as the plain guard's select (mincut.move_energy_delta):
+    equal masks with NaN proposal costs in some regions."""
+    args, lam, tau = _expansion_problem(cuda, 16, 12)
+    pcost = args[6].clone()
+    pcost[::3, 2, 5] = float("nan")
+    args = args[:6] + [pcost]
+    kw = dict(lam=lam, tau=tau, max_global_rounds=16, sweeps_per_round=16)
+    got = mincut_cuda.expansion_accept(*args, **kw)
+    want = mincut_cuda.expansion_accept_reference(*args, **kw)
+    assert torch.equal(got, want)
+    assert bool(got[1::3].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", [0, 1, 2])
+def test_method_sampler_on_card_matches_cpu(cuda, method):
+    """unary_volume.sample_windows on the card against the same call on
+    the CPU (plain torch on both): equal NaN positions, atol 1e-6."""
+    from localexpstereo_tpu_torch.ops import unary_volume
+    rng = np.random.default_rng(method)
+    d, h, w, f, n, vp = 24, 40, 56, 21, 64, 4
+    vol = (rng.random((d, h + 2 * vp, w + 2 * vp)) * 255).astype(np.uint8)
+    props = np.stack([rng.uniform(-0.3, 0.3, n), rng.uniform(-0.3, 0.3, n),
+                      rng.uniform(-3.0, d + 2.0, n), np.zeros(n)],
+                     -1).astype(np.float32)
+    props[0, 2] = np.nan
+    fox = rng.integers(-10, w, n)
+    foy = rng.integers(-10, h, n)
+    out = {}
+    for dev in ("cpu", cuda):
+        def t(x):
+            return torch.as_tensor(x, device=dev)
+        out[str(dev)] = unary_volume.sample_windows(
+            t(vol), vp, t(props), t(fox), t(foy), f, h, w, min_disp=0.0,
+            max_disp=d - 1.0, th_col=0.5, method=method, scale=1.0 / 255,
+            zero=0.0).cpu().numpy()
+    got, want = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bilateral_filter_on_card_matches_cpu(cuda):
+    from localexpstereo_tpu_torch.ops import bilateral
+    rng = np.random.default_rng(3)
+    n, f, r = 6, 42, 20
+    args = [rng.random((n, f, f)).astype(np.float32),
+            (rng.random((n, f, f, 3)) * 255).astype(np.float32),
+            (rng.random((n, f, f)) > 0.2).astype(np.float32)]
+    want = bilateral.filter_windows(*map(torch.from_numpy, args), r, 10.0)
+    got = bilateral.filter_windows(
+        *[torch.from_numpy(a).to(cuda) for a in args], r, 10.0)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_replica_workers_on_card_equal_in_process(cuda):
+    """Two worker processes on cuda:0 (three pairs, two waves on the
+    first) give the in-process results on the card, bitwise."""
+    from localexpstereo_tpu_torch.parallel.replica import ReplicaSolver
+    rng = np.random.default_rng(0)
+    b, h, w, nd = 3, 48, 64, 12
+    ims = (rng.random((b, h, w, 3)) * 255).astype(np.float32)
+    dd = np.arange(nd, dtype=np.float32)[:, None, None]
+    vols = np.stack([np.minimum(np.abs(dd - rng.random((h, w), np.float32)
+                                       * (nd - 1)) * 0.4, 1.0)
+                     for _ in range(b)]).astype(np.float32)
+    finals = []
+    for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        rs = ReplicaSolver(ims, ims, PARAMS_GF.replace(windR=6, lambda_=0.5,
+                                                       th_col=0.5),
+                           nd - 1.0, [4, 8], devices=devices, vols0=vols,
+                           vols1=vols, seed=5)
+        finals.append(rs.run(1, (0,), 1)[0])
+        assert all(rs.pair_stats(k)["launches"]["expansion_accept"] > 0
+                   for k in range(b))
+    assert np.array_equal(finals[0], finals[1])

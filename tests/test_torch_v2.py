@@ -307,13 +307,36 @@ def test_naive_energy_has_no_fused_route(energy):
 
 
 def test_bilateral_filter_refusal_cites_a12(energy):
-    _, _, tdata, tcfg = energy
+    """A12's bilateral filter is ported: the naive unary under "BF" on the
+    init's unit windows equals the JAX package's (rtol 1e-5 / atol 1e-4);
+    only a call without the statistic windows the filter reads is
+    refused."""
+    jdata, jcfg, tdata, tcfg = energy
+    jcfg = dataclasses.replace(jcfg, params=jcfg.params.replace(
+        filter_name="BF", filter_param1=10.0))
     cfg = dataclasses.replace(tcfg, params=tcfg.params.replace(
-        filter_name="BF"))
-    with pytest.raises(NotImplementedError, match="A12"):
+        filter_name="BF", filter_param1=10.0))
+    with pytest.raises(ValueError, match="no fused unary route"):
         ten.unary_windows(tdata, cfg, 0, torch.zeros((1, 4)),
                           torch.zeros(1, dtype=torch.int64),
                           torch.zeros(1, dtype=torch.int64), 0, 4, None)
+    s = 8
+    hb, wb = -(-H // s), -(-W // s)
+    ux = np.tile(np.arange(wb) * s, hb).astype(np.int32)
+    uy = np.repeat(np.arange(hb) * s, wb).astype(np.int32)
+    rng = np.random.default_rng(5)
+    props = np.stack([rng.uniform(-0.2, 0.2, ux.shape[0]),
+                      rng.uniform(-0.2, 0.2, ux.shape[0]),
+                      rng.uniform(0.0, MAX_DISP, ux.shape[0]),
+                      np.zeros(ux.shape[0])], -1).astype(np.float32)
+    want = np.asarray(jen.unary_windows(
+        jdata, jcfg, 0, jnp.asarray(props), jnp.asarray(ux),
+        jnp.asarray(uy), 0, s))
+    tstat = ten.dense_filter_windows(tdata, cfg, 0, _t(ux).long(),
+                                     _t(uy).long(), 0, 0, hb, wb, s, 0, s)
+    got = ten.unary_windows(tdata, cfg, 0, _t(props), _t(ux).long(),
+                            _t(uy).long(), 0, s, tstat).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
 
 # -------------------------------------------------------------- the solves --
