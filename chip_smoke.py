@@ -132,13 +132,30 @@ Phases, each printing JSON lines:
             wall seconds, and for the profiled windows device-busy seconds,
             the idle share and the largest device ops, the expansion
             kernel's seconds per move-window size (CUDA events), and the
-            graph-cut sweep's peak device memory.
+            graph-cut sweep's peak device memory;
+18. sharded: the sharded engines (``localexpstereo_tpu_torch.parallel``),
+            one process a rank, SHARD_RANKS ranks sharing cuda:0 over
+            gloo: ``expansion_accept`` on a row slice under ``plan_n`` at
+            S = 129 and 387 (equal to the whole call's rows and to the
+            plain version); the 1436 x 992 x 145 problem disparity- then
+            height-sharded at 2 + 5 on "auto" against the single-device
+            solve in this process (each sweep's energy, the largest label
+            difference, bitwise equality (required of the height-sharded
+            solve; the disparity-sharded one within the JAX tolerance),
+            every rank's state equal, each rank's volume bytes against the
+            whole, its peak memory, solve and collective seconds); a batch
+            of two 718 x 496 x 72 pairs on the two ranks, each pair equal
+            to its single solve; the whole-image aggregation at 992 x 1436
+            over four ranks against ``filter_image``; and the at-scale
+            slice (2880 x 1988 x 400 uint8 over four ranks: banded init,
+            one greedy color step; each rank's volume bytes and peak).
 
-A full run takes the phases in this order but runs ``small`` after
-``batch`` and ``bf_interp`` last: their CPU solves run meanwhile in two
+A full run takes the phases in this order but runs ``sharded`` after
+``batch``, then ``small``, and ``bf_interp`` last: their CPU solves run meanwhile in two
 worker processes that do not see the card. Then a ``{"kernels": [...]}`` line (launches from the
 ``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream``,
-``cli_mccnn``, ``batch`` and ``bf_interp`` runs' beside them), the
+``cli_mccnn``, ``batch``, ``bf_interp`` and ``sharded`` runs' beside
+them), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -232,6 +249,18 @@ BF_TIMED = (468, 62, 20)
 #: float32 operations of one bilateral tap (3 differences, 3 absolute
 #: values, 2 adds, the division and exp, 2 products, 2 sums).
 OPS_BILATERAL_TAP = 14
+#: The sharded phase: ranks sharing cuda:0 (gloo) for the disparity- and
+#: height-sharded solves of the cli problem and the batch; the solves'
+#: schedule (greedy, graph-cut sweeps: the cli phase's); the batch's scale,
+#: seeds (one pair a seed, pair b's seed b in the solver) and schedule;
+#: the at-scale slice's (height, width, disparities), ranks and init band
+#: (cell rows).
+SHARD_RANKS = 2
+SHARD_SCHEDULE = (2, 5)
+SHARD_BATCH = (0.5, (2, 3), (1, 1))
+SCALE_SHAPE = (1988, 2880, 400)
+SCALE_RANKS = 4
+SCALE_CHUNK = 16
 
 
 def emit(obj) -> None:
@@ -1017,10 +1046,14 @@ def phase_profile(torch):
         solvers[route], _, sizes = synthetic.bench_solver(1.0, "cuda",
                                                           route=route)
         solvers[route].finalize()
+    parts = {}
+    t0 = time.perf_counter()
     walls = greedy_walls(torch, solvers,
                          ("auto", "dma", "dma", "auto"))
+    parts["walls_s"] = time.perf_counter() - t0
     greedy_dma = profiled(torch, lambda: solvers["dma"].run(
         iterations=0, pm_iterations=1))
+    parts["greedy_profiled_s"] = time.perf_counter() - t0 - parts["walls_s"]
     solver = solvers.pop("auto")
     del solvers
     torch.cuda.empty_cache()
@@ -1029,13 +1062,16 @@ def phase_profile(torch):
     engine.mincut_cuda = timed
     try:
         key = rng.fold_in(rng.PRNGKey(solver.seed), 3000 + 1)
+        t0 = time.perf_counter()
         gc = profiled(torch, lambda: solver._sweep(solver._state[0], 0, 0,
                                                    True, key))
+        parts["gc_profiled_s"] = time.perf_counter() - t0
     finally:
         engine.mincut_cuda = mincut_cuda
     gc["kernel_by_shape"] = timed.by_shape()
     gc["kernel_s"] = sum(r["kernel_s"] for r in gc["kernel_by_shape"])
     emit({"phase": "profile", "layers": sizes, "greedy_wall_s": walls,
+          "seconds": parts,
           "greedy_dma": greedy_dma, "gc": gc,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
 
@@ -1959,9 +1995,239 @@ def bf_interp_times(torch):
     return row
 
 
+def sharded_jobs_rank(rank, device, jobs):
+    """One rank of the sharded phase's group: each job in turn, on the
+    synthetic problem of its (scale, seed), layers sized as the main
+    path's. A job is ("volume" | "dvolume", scale, seed, schedule), a solve
+    of view 0 (``multichip.solve``), or ("batch", scale, seeds, schedule):
+    a BatchedSolver over one pair a seed, built lazily (a rank builds its
+    own pairs only)."""
+    import torch
+    from localexpstereo_tpu_torch.parallel.batch import BatchedSolver
+    from localexpstereo_tpu_torch.tools import multichip
+    from localexpstereo_tpu_torch.utils import synthetic
+    params = sharded_params()
+    out = []
+    for kind, scale, seed, schedule in jobs:
+        torch.cuda.empty_cache()
+        if kind != "batch":
+            img, vol, _, w, nd, _ = synthetic.build_problem(scale, seed)
+            sizes = [int(w * f) for f in (0.01, 0.03, 0.09)]
+            row = multichip.solve(rank, device, kind, img, vol,
+                                  float(nd - 1), sizes, 0, schedule, params)
+            del img, vol
+        else:
+            pairs = BatchPairs(scale, seed)
+            torch.cuda.reset_peak_memory_stats(device)
+            bs = BatchedSolver(pairs.images(), pairs.images(), params,
+                               pairs.max_disp, pairs.sizes, device=device,
+                               vols0=pairs.volumes(), vols1=pairs.volumes())
+            multichip.zero_launch_counts()
+            t0 = time.perf_counter()
+            final, _ = bs.run(schedule[1], pm_iterations=schedule[0])
+            torch.cuda.synchronize(device)
+            row = {"final": final, "pairs": list(bs.pairs),
+                   "solve_s": time.perf_counter() - t0,
+                   "launches": multichip.launch_counts(),
+                   "peak_gib": torch.cuda.max_memory_allocated(device)
+                   / 2 ** 30}
+        row["job"] = kind
+        out.append(row)
+    return out
+
+
+def sharded_params():
+    """The main path's parameters (``synthetic.bench_solver``'s)."""
+    from localexpstereo_tpu_torch.config import PARAMS_GF
+    return PARAMS_GF.replace(windR=20, lambda_=0.5, th_col=0.5)
+
+
+class BatchPairs:
+    """The sharded batch's pairs: ``synthetic.build_problem(scale, seed)``
+    for each seed, built at first use, as the sequences BatchedSolver
+    indexes."""
+
+    def __init__(self, scale, seeds):
+        from localexpstereo_tpu_torch.utils import synthetic
+        self.seeds = list(seeds)
+        self._build = functools.lru_cache(maxsize=None)(
+            lambda b: synthetic.build_problem(scale, self.seeds[b]))
+        _, w, nd = synthetic.problem_shape(scale)
+        self.max_disp = float(nd - 1)
+        self.sizes = [int(w * f) for f in (0.01, 0.03, 0.09)]
+
+    def images(self):
+        return _Lazy(len(self.seeds), lambda b: self._build(b)[0])
+
+    def volumes(self):
+        return _Lazy(len(self.seeds), lambda b: self._build(b)[1])
+
+
+class _Lazy:
+    def __init__(self, n, get):
+        self.n, self.get = n, get
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, b):
+        return self.get(b)
+
+
+def shard_row(o):
+    """A sharded solve's printed fields (no arrays)."""
+    return {k: v for k, v in o.items()
+            if k not in ("labels", "cost", "final")}
+
+
+def phase_sharded(torch):
+    """The sharded engines on the card (``localexpstereo_tpu_torch.parallel``,
+    one process a rank, gloo: SHARD_RANKS ranks share cuda:0): the
+    disparity- and the height-sharded solves of the cli problem (2 + 5,
+    one view, auto) against the single-device solve in this process, the
+    batch over two ranks against each pair's single solve, the spatial
+    aggregation over 4 ranks against filter_image, the at-scale slice
+    over 4 ranks, and expansion_accept on a row slice under plan_n."""
+    from localexpstereo_tpu_torch.models import engine
+    from localexpstereo_tpu_torch.ops import mincut_cuda
+    from localexpstereo_tpu_torch.parallel import collectives
+    from localexpstereo_tpu_torch.tools import multichip
+    from localexpstereo_tpu_torch.utils import synthetic
+    devices = ["cuda:0"] * SHARD_RANKS
+    # expansion_accept on a row slice, the whole call's plan (plan_n).
+    plan_rows = []
+    for s, n, sweeps in SHAPES[1:]:
+        arrays, lam, tau = synthetic.fused_move_problem(
+            np.random.default_rng(s), n, s)
+        args = [torch.as_tensor(a, device="cuda") for a in arrays]
+        kw = dict(lam=lam, tau=tau, max_global_rounds=ROUNDS,
+                  sweeps_per_round=sweeps)
+        lo, hi = n // 3, n // 3 + max(n // 3, 1)
+        full = mincut_cuda.expansion_accept(*args, **kw)
+        part = [a[lo:hi] for a in args]
+        got = mincut_cuda.expansion_accept(*part, plan_n=n, **kw)
+        plain = mincut_cuda.expansion_accept_reference(*part, **kw)
+        row = {"S": s, "N": n, "rows": [lo, hi],
+               "plan": mincut_cuda.describe("expansion_accept", s, n),
+               "plan_alone": mincut_cuda.describe("expansion_accept", s,
+                                                  hi - lo),
+               "equal_full_rows": bool(torch.equal(got, full[lo:hi])),
+               "equal_plain": bool(torch.equal(got, plain))}
+        plan_rows.append(row)
+        if not (row["equal_full_rows"] and row["equal_plain"]):
+            raise AssertionError(f"expansion_accept under plan_n: {row}")
+
+    # The D- and H-sharded solves and the batch, one group of two ranks.
+    jobs = [("dvolume", 1.0, 0, SHARD_SCHEDULE),
+            ("volume", 1.0, 0, SHARD_SCHEDULE),
+            ("batch", SHARD_BATCH[0], SHARD_BATCH[1], SHARD_BATCH[2])]
+    t0 = time.perf_counter()
+    ranks = collectives.launch(sharded_jobs_rank, devices, jobs,
+                               timeout_s=900)
+    group_s = time.perf_counter() - t0
+    img, vol, h, w, nd, truth = synthetic.build_problem(1.0)
+    sizes = [int(w * f) for f in (0.01, 0.03, 0.09)]
+    ref = multichip.solve_single(img, vol, float(nd - 1), sizes, 0, "cuda",
+                                 schedule=SHARD_SCHEDULE,
+                                 params=sharded_params())
+    whole = ref["vol_bytes"]
+    del img, vol
+    rows = {}
+    for j, kind in enumerate(("dvolume", "volume")):
+        outs = [r[j] for r in ranks]
+        same = all(np.array_equal(o["labels"], outs[0]["labels"])
+                   and np.array_equal(o["cost"], outs[0]["cost"])
+                   for o in outs)
+        lab = outs[0]["labels"]
+        bitwise = bool(np.array_equal(lab, ref["labels"])
+                       and np.array_equal(outs[0]["cost"], ref["cost"]))
+        disp = lab[..., 0] * np.arange(w)[None] + lab[..., 1] \
+            * np.arange(h)[:, None] + lab[..., 2]
+        rows[kind] = {
+            "energies": outs[0]["energies"], "energies_single":
+            ref["energies"], "max_label_diff": float(np.abs(
+                lab - ref["labels"]).max()), "bitwise": bitwise,
+            "ranks_equal": same,
+            "bad10": float((np.abs(disp - truth) > 1.0).mean() * 100),
+            "vol_bytes": [o["vol_bytes"] for o in outs],
+            "whole_vol_bytes": whole,
+            "vol_fraction": [o["vol_bytes"] / whole for o in outs],
+            "ranks": [shard_row(o) for o in outs]}
+        if not same:
+            raise AssertionError(f"{kind}: the ranks' states differ")
+        if kind == "volume" and not bitwise:
+            raise AssertionError("the height-sharded solve differs from the "
+                                 "single-device one")
+        if kind == "dvolume" and not np.allclose(
+                lab, ref["labels"], atol=multichip.DSHARD_ATOL,
+                rtol=multichip.DSHARD_RTOL):
+            raise AssertionError("the disparity-sharded solve is outside "
+                                 "the tolerance of the single-device one")
+    rows["dvolume"]["expected_fraction"] = 1 / SHARD_RANKS + 2 / nd
+    rows["volume"]["shard_rows"] = ranks[0][1]["vol_shape"][2]
+    rows["volume"]["image_rows"] = h
+    rows["volume"]["padded_rows"] = ref["vol_shape"][2]
+    rows["single"] = {k: ref[k] for k in ("solve_s", "build_s", "peak_gib",
+                                          "launches", "energies")}
+    # The batch: each pair against LocalExpansionSolver(seed=b).
+    pairs = BatchPairs(SHARD_BATCH[0], SHARD_BATCH[1])
+    final = ranks[0][2]["final"]
+    equal = []
+    for b in range(len(SHARD_BATCH[1])):
+        single = engine.LocalExpansionSolver(
+            pairs.images()[b], pairs.images()[b], sharded_params(),
+            pairs.max_disp, vol0=pairs.volumes()[b],
+            vol1=pairs.volumes()[b], seed=b, device="cuda")
+        for i, size in enumerate(pairs.sizes):
+            single.add_layer(size, engine.LAYER0_PROPOSERS if i == 0
+                             else engine.COARSE_PROPOSERS)
+        lab, _ = single.run(SHARD_BATCH[2][1],
+                            pm_iterations=SHARD_BATCH[2][0])
+        equal.append(bool(np.array_equal(final[b], lab.cpu().numpy())))
+        del single
+    rows["batch"] = {"pairs_equal_single": equal,
+                     "ranks_equal": all(np.array_equal(r[2]["final"], final)
+                                        for r in ranks),
+                     "ranks": [shard_row(r[2]) for r in ranks]}
+    if not all(equal) or not rows["batch"]["ranks_equal"]:
+        raise AssertionError(f"the batch differs from the single solves: "
+                             f"{equal}")
+    torch.cuda.empty_cache()
+    # The spatial aggregation, then the at-scale slice, over 4 ranks.
+    t1 = time.perf_counter()
+    spatial = multichip.spatial_case(["cuda:0"] * 4, h, w,
+                                     sharded_params().guided_radius)
+    rows["spatial"] = {"shape": [h, w], "ranks": 4, **spatial,
+                       "atol": multichip.SPATIAL_ATOL,
+                       "seconds": time.perf_counter() - t1}
+    if not spatial["max_abs_err"] <= multichip.SPATIAL_ATOL:
+        raise AssertionError(f"sharded aggregation: {spatial}")
+    t1 = time.perf_counter()
+    scale = multichip.scale_slice(["cuda:0"] * SCALE_RANKS, *SCALE_SHAPE,
+                                  init_chunk=SCALE_CHUNK)
+    rows["scale"] = {"shape": SCALE_SHAPE, "ranks": scale,
+                     "seconds": time.perf_counter() - t1}
+    launches = {kind: sum(r[j]["launches"]["expansion_accept"]
+                          for r in ranks)
+                for j, kind in enumerate(("dvolume", "volume", "batch"))}
+    row = {"phase": "sharded", "devices": devices,
+           "backend": collectives.choose_backend(devices),
+           "group_s": group_s, "plan_n": plan_rows, **rows,
+           "launches": launches,
+           "sample_windows_launches": sum(
+               r[j]["launches"]["sample_windows"] for r in ranks
+               for j in range(3)),
+           "nvidia_smi": smi_line()}
+    emit(row)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a sharded run never launched the expansion "
+                             f"kernel: {launches}")
+    return row
+
+
 PHASES = ("kernel", "mincut_kernel", "unary_kernel", "small", "slice", "cli",
           "fuse", "dual", "v2", "mccnn", "stream", "cli_mccnn", "batch",
-          "bf_interp", "profile")
+          "bf_interp", "profile", "sharded")
 
 
 def main(argv) -> int:
@@ -2010,6 +2276,7 @@ def main(argv) -> int:
         stream_row = timed("stream", phase_stream)
         mccnn_cli_row = timed("cli_mccnn", phase_cli_mccnn)
         batch_row = timed("batch", phase_batch)
+        sharded_row = timed("sharded", phase_sharded)
         t0 = time.perf_counter()
         twins = twins.get()
         seconds["small_twins_wait"] = time.perf_counter() - t0
@@ -2046,6 +2313,8 @@ def main(argv) -> int:
          "launches_batch": batch_row["launches"]["expansion_accept"],
          "launches_bf_interp": sum(r["launches"]["expansion_accept"]
                                    for r in bf_rows[:-1]),
+         "launches_sharded": sum(sharded_row["launches"].values()),
+         "launches_sharded_by_run": sharded_row["launches"],
          **kernel_entry([r for r in rows if r["path"] == "v3"]),
          "v2": kernel_entry([r for r in rows if r["path"] == "v2"])},
         {"name": "sample_windows", "route": "cuda",
@@ -2057,6 +2326,7 @@ def main(argv) -> int:
          "launches_cli_mccnn": mccnn_cli_row["launches"]["sample_windows"],
          "launches_batch": batch_row["launches"]["sample_windows"],
          "launches_bf_interp": bf_rows[0]["launches"]["sample_windows"],
+         "launches_sharded": sharded_row["sample_windows_launches"],
          **kernel_entry(gf),
          "max_abs_err": max(r["max_abs_err"] for r in urows)},
         {"name": "mincut_accept", "route": "cuda",

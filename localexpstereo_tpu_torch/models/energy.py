@@ -23,6 +23,12 @@ on the same windows.
 
 Windows are fixed-shape slices of the margin-padded arrays; out-of-image
 pixels are handled by masks, never by clipping.
+
+A rank of a sharded solver (:mod:`..parallel.volume`,
+:mod:`..parallel.dvolume`) holds one part of the padded volume
+(:class:`VolumeWindow`, ``build_energy(vol_transform=)``), and its
+configuration says so (``EnergyConfig.sharded``): the fused kernel, which
+reads the whole padded volume, is then off.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 from ..config import COST_FOR_INVALID, Parameters
 from ..ops import (bilateral, guided, pairwise, unary_cuda, unary_volume,
                    unary_warp, validity, windows)
+from ..parallel import collectives
 
 
 class EnergyData(NamedTuple):
@@ -77,6 +84,18 @@ class EnergyConfig:
     #: The volume's d-interpolation (``CostVolumeEnergy.h:45-48``): 0
     #: nearest, 1 linear, 2 quadratic.
     interp: int = 1
+    #: ``vol`` is one rank's part of the volume (a :class:`VolumeWindow`).
+    sharded: bool = False
+
+
+class VolumeWindow(NamedTuple):
+    """The part of the padded volume one rank of a sharded solver holds:
+    ``size`` planes (``axis`` 0; the plane axis has no padding) or padded
+    rows (``axis`` 1) from ``start``, zero where they leave the volume."""
+
+    axis: int
+    start: int
+    size: int
 
 
 def _guided(cfg: EnergyConfig) -> bool:
@@ -86,9 +105,11 @@ def _guided(cfg: EnergyConfig) -> bool:
 def fused_unary(cfg: EnergyConfig) -> bool:
     """Whether the sweeps' unary runs the fused sampling kernel: the "dma"
     route of the volume kind with linear interpolation (the kernel's only
-    method). The one routing point of the unary."""
+    method), on a whole volume (a shard's part is sampled by the plain
+    sampler, as the JAX engine's ``use_vol_dma`` excludes its sharded
+    modes). The one routing point of the unary."""
     return (cfg.kind == "volume" and cfg.unary_backend == "dma"
-            and cfg.interp == 1)
+            and cfg.interp == 1 and not cfg.sharded)
 
 
 def kernel_filters(cfg: EnergyConfig) -> bool:
@@ -102,7 +123,8 @@ def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
                  pad: int, vol0=None, vol1=None, min_disp: float = 0.0,
                  max_vdisp: float = 0.0, vol_pad: int = 0, device="cuda",
                  vol_dtype: str = "uint8", stats_backend: str = "host",
-                 interp: int = 1):
+                 interp: int = 1,
+                 vol_transform: Optional[VolumeWindow] = None):
     """Builds (EnergyData, EnergyConfig) for one stereo pair on ``device``
     (the card unless the caller asks for the CPU; see
     :func:`resolve_device`), from images and volumes given as numpy arrays
@@ -124,7 +146,12 @@ def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
     [min(0, min(vol)), 2 th_col]; "device" (its serving path's per-frame
     build, ``_build_energy_device``) over the static [0, 2 th_col], so that
     the configuration depends on the frame's shapes and the parameters
-    only. The two differ for a volume with negative values."""
+    only. The two differ for a volume with negative values.
+
+    ``vol_transform``: store only this part of the padded volumes (a shard
+    rank's; ``cfg.sharded`` is set). The volumes need only support slicing
+    their leading two axes (numpy arrays, memory maps, tensors), and only
+    the part is read; the uint8 range is the whole volume's."""
     device = resolve_device(device)
     if vol_dtype not in ("uint8", "bfloat16", "float32"):
         raise ValueError(f"vol_dtype {vol_dtype!r}: the port stores the "
@@ -155,9 +182,10 @@ def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
     else:
         vol, vol_scale, vol_zero = _store_volumes(
             vol0, vol1, int(vol_pad), device, vol_dtype, params.th_col,
-            static_range=stats_backend == "device")
+            static_range=stats_backend == "device", window=vol_transform)
         cfg = dataclasses.replace(cfg, vol_pad=int(vol_pad),
-                                  vol_scale=vol_scale, vol_zero=vol_zero)
+                                  vol_scale=vol_scale, vol_zero=vol_zero,
+                                  sharded=vol_transform is not None)
     data = EnergyData(guide=torch.stack(guides), gf_mean=torch.stack(means),
                       gf_inv=torch.stack(invs), coeff8=torch.stack(coeffs),
                       vol=vol, exi=exi)
@@ -183,13 +211,43 @@ def _nanmin(v: torch.Tensor) -> float:
     return float(v[~torch.isnan(v)].amin() if torch.isnan(m) else m)
 
 
+def _volume_part(vol, vol_pad: int, device: torch.device,
+                 window: Optional[VolumeWindow]):
+    """(shape of the stored view, float32 part of ``vol`` on ``device``,
+    the part's index into the stored view): the view padded by
+    ``vol_pad``, or ``window``'s part of the padded view. Only the part
+    of ``vol`` is read; the rest of the stored view is zero."""
+    nd, h, w = (int(x) for x in vol.shape)
+    vp = vol_pad
+    shape = [nd, h + 2 * vp, w + 2 * vp]
+    if window is None:
+        src, dst = (slice(None),), (slice(None), slice(vp, vp + h))
+    elif window.axis == 0:
+        lo, hi = max(window.start, 0), min(window.start + window.size, nd)
+        hi = max(hi, lo)
+        src = (slice(lo, hi),)
+        dst = (slice(lo - window.start, hi - window.start), slice(vp, vp + h))
+    else:
+        # The window's padded rows that hold image rows.
+        lo = max(window.start, vp)
+        hi = max(min(window.start + window.size, vp + h), lo)
+        src = (slice(None), slice(lo - vp, hi - vp))
+        dst = (slice(None), slice(lo - window.start, hi - window.start))
+    if window is not None:
+        shape[window.axis] = window.size
+    part = torch.as_tensor(vol[src], dtype=torch.float32, device=device)
+    return shape, part, dst + (slice(vp, vp + w),)
+
+
 def _store_volumes(vol0, vol1, vol_pad: int, device: torch.device,
-                   vol_dtype: str, th_col: float, static_range: bool):
+                   vol_dtype: str, th_col: float, static_range: bool,
+                   window: Optional[VolumeWindow] = None):
     """Both views' volumes as one [2, D, H + 2 vol_pad, W + 2 vol_pad]
-    tensor of ``vol_dtype`` on ``device`` (zero margin), with the uint8
-    decode (scale, zero). Each view is converted on its own into the
-    output (``vol1`` the same object as ``vol0`` is converted once), so
-    the peak is one float32 view beyond the inputs.
+    tensor of ``vol_dtype`` on ``device`` (zero margin), or ``window``'s
+    part of it, with the uint8 decode (scale, zero). Each view is
+    converted on its own into the output (``vol1`` the same object as
+    ``vol0`` is converted once), so the peak is one float32 view beyond
+    the inputs.
 
     uint8 is a linear quantization over [zero, 2 th_col] (values above
     th_col matter only through interpolation with a sub-th_col neighbor):
@@ -197,24 +255,26 @@ def _store_volumes(vol0, vol1, vol_pad: int, device: torch.device,
     float32 operations are the JAX package's, the divisor a tensor on the
     device (a CUDA division by a host scalar multiplies by its reciprocal,
     which rounds otherwise)."""
-    views = [torch.as_tensor(v, dtype=torch.float32, device=device)
+    parts = [_volume_part(v, vol_pad, device, window)
              for v in ((vol0,) if vol1 is vol0 else (vol0, vol1))]
-    nd, h, w = views[0].shape
-    vp = vol_pad
     scale, zero = 1.0, 0.0
     if vol_dtype == "uint8":
         if not static_range:
-            zero = min(0.0, *(_nanmin(v) for v in views))
+            zero = min(0.0, *(_nanmin(v) for _, v, _ in parts
+                              if v.numel()))
+            if window is not None:
+                # The uint8 range of the whole volume, not of this part.
+                zero = collectives.reduce_min(zero)
         hi = max(2.0 * float(th_col), zero + 1e-6)
         scale = (hi - zero) / 255.0
         divisor = torch.tensor(scale, dtype=torch.float32, device=device)
-    out = torch.zeros((2, nd, h + 2 * vp, w + 2 * vp),
-                      dtype=getattr(torch, vol_dtype), device=device)
-    for k, v in enumerate(views):
+    out = torch.zeros([2] + parts[0][0], dtype=getattr(torch, vol_dtype),
+                      device=device)
+    for k, (_, v, index) in enumerate(parts):
         if vol_dtype == "uint8":
             v = torch.clamp(v, zero, hi).sub_(zero).div_(divisor).round_()
-        out[k, :, vp:vp + h, vp:vp + w] = v
-    if len(views) == 1:
+        out[(k,) + index] = v
+    if len(parts) == 1:
         out[1] = out[0]
     return out, scale, zero
 
@@ -329,7 +389,9 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
                   proposals: torch.Tensor, ox: torch.Tensor,
                   oy: torch.Tensor, target_off: int, target_size: int,
                   stat_windows, clamp_slabs: bool = True,
-                  kernel: bool = False) -> torch.Tensor:
+                  kernel: bool = False, vol_row_base: Optional[int] = None,
+                  dshard: Optional[unary_volume.DShard] = None
+                  ) -> torch.Tensor:
     """Filtered unary costs of ``proposals`` over their target windows
     (``CostVolumeEnergy.h:55-183`` / ``StereoEnergy.h:694-753``): raw cost
     on the filter window (target + R margin, R = ``windR // 2``), the
@@ -353,6 +415,12 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
         :func:`..ops.unary_cuda.sample_windows`, where :func:`fused_unary`
         says so (the JAX engine's ``vol_dma``); else the plain sampler of
         the energy's kind and ``interp``, as the JAX init always does.
+      vol_row_base: the volume's array row of image row 0 (a height
+        shard's; default ``cfg.vol_pad``).
+      dshard: ``(d_base, d_owned, d_total)`` of a disparity shard: each
+        rank samples the pixels it owns, and the partials of all ranks are
+        merged (:func:`..parallel.collectives.merge_owned`) before the
+        filter, into the unsharded raw cost bit for bit.
     Returns:
       [N, T, T] float32 costs (0 outside the image).
     """
@@ -375,18 +443,21 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
             stats=((data.guide[mode], data.gf_mean[mode], data.gf_inv[mode])
                    if in_kernel else None), pad=cfg.pad,
             r_gf=r if in_kernel else 0)
-    elif cfg.kind == "volume" and cfg.interp == 1:
-        q = unary_volume.sample_windows_aligned(
-            data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
-            cfg.height, cfg.width, min_disp=cfg.min_disp,
-            th_col=cfg.params.th_col, scale=cfg.vol_scale,
-            zero=cfg.vol_zero)
     elif cfg.kind == "volume":
-        q = unary_volume.sample_windows(
-            data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
-            cfg.height, cfg.width, min_disp=cfg.min_disp,
-            max_disp=cfg.max_disp, th_col=cfg.params.th_col,
-            method=cfg.interp, scale=cfg.vol_scale, zero=cfg.vol_zero)
+        part = dict(row_base=vol_row_base, dshard=dshard,
+                    min_disp=cfg.min_disp, th_col=cfg.params.th_col,
+                    scale=cfg.vol_scale, zero=cfg.vol_zero)
+        if cfg.interp == 1:
+            q = unary_volume.sample_windows_aligned(
+                data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
+                cfg.height, cfg.width, **part)
+        else:
+            q = unary_volume.sample_windows(
+                data.vol[mode], cfg.vol_pad, proposals, fox, foy, fsize,
+                cfg.height, cfg.width, max_disp=cfg.max_disp,
+                method=cfg.interp, **part)
+        if dshard is not None:
+            q = collectives.merge_owned(q)
     else:
         q = _warp_windows(data, cfg, mode, proposals, fox, foy, fsize,
                           clamp_slabs)

@@ -103,3 +103,13 @@ def filter_windows(p: torch.Tensor, guide: torch.Tensor, mean: torch.Tensor,
     ab_sums = boxfilter.boxsum2d(ab, radius)              # [N, 4, F, F]
     return (ab_sums[:, 0] * guide[..., 0] + ab_sums[:, 1] * guide[..., 1]
             + ab_sums[:, 2] * guide[..., 2] + ab_sums[:, 3]) * inv_n
+
+
+def filter_image(p: torch.Tensor, stats: GuidedFilterStats,
+                 radius: int) -> torch.Tensor:
+    """Whole-image guided filtering of [H, W] costs (the reference's
+    ``filter_mat``; the JAX package's ``guided.filter_image``): one window
+    the size of the image, every pixel in it."""
+    mask = torch.ones_like(p)
+    return filter_windows(p[None], stats.guide[None], stats.mean[None],
+                          stats.inv[None], mask[None], radius)[0]

@@ -272,8 +272,8 @@ def expansion_accept(halo: torch.Tensor, props: torch.Tensor,
                      tox: torch.Tensor, toy: torch.Tensor,
                      coeff8: torch.Tensor, ccost: torch.Tensor,
                      pcost: torch.Tensor, *, lam: float, tau: float,
-                     max_global_rounds: int = 64,
-                     sweeps_per_round: int = 0) -> torch.Tensor:
+                     max_global_rounds: int = 64, sweeps_per_round: int = 0,
+                     plan_n: Optional[int] = None) -> torch.Tensor:
     """Fused expansion move for a batch of regions.
 
     Args:
@@ -285,6 +285,11 @@ def expansion_accept(halo: torch.Tensor, props: torch.Tensor,
       lam, tau: smoothness weight and truncation.
       max_global_rounds, sweeps_per_round: round structure of the solve
         (0 sweeps = 16).
+      plan_n: the region count the launch plan is chosen for (default N):
+        a height shard passes its rows of a color with the whole color's
+        count, so that it launches the plan of the unsharded call and its
+        rows come out as that call's (the plan's band split orders the
+        solve's float work). The plain version has no plan.
     Returns:
       accept: [N, S, S] bool, zeroed in every region whose move would raise
       the region energy.
@@ -308,7 +313,7 @@ def expansion_accept(halo: torch.Tensor, props: torch.Tensor,
     if n == 0:
         return torch.empty((n, s, s), dtype=torch.bool, device=dev)
     with torch.cuda.device(dev):
-        plan = card_plan("expansion_accept", s, n)
+        plan = card_plan("expansion_accept", s, plan_n or n)
         return launch_expansion(
             halo, props, tox, toy, coeff8, ccost, pcost, lam=lam, tau=tau,
             max_global_rounds=max_global_rounds,

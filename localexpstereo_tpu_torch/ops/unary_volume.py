@@ -9,6 +9,23 @@ methods (``CostVolumeEnergy.h:45-48``): 0 nearest, 1 linear, 2 the
 Lagrange quadratic through three taps; the engine routes methods 0 and 2
 through it.
 
+Both read a whole padded volume, or one rank's part of it:
+
+- ``row_base``: the array row of image row 0, ``vol_pad`` by default; a
+  height shard (:mod:`..parallel.volume`) holds a band of rows, and its
+  row base is its own.
+- ``dshard``: ``(d_base, d_owned, d_total)``, the volume a disparity
+  shard (:mod:`..parallel.dvolume`): ``vol`` holds global planes
+  ``[d_base - 1, d_base + d_owned + 1)`` (zero beyond the volume's ends).
+  Every output pixel has one owner, the rank holding its primary tap
+  (the tap plane the index arithmetic clamps into ``[0, d_total)``, so
+  the out-of-range and non-finite planes go to the first and last rank);
+  the owner computes the pixel's finished cost with the unsharded
+  sampler's operations, in its order, from its local planes, and every
+  other rank gives 0. The partials of all ranks merged
+  (:func:`..parallel.collectives.merge_owned`) equal the unsharded
+  sampler bit for bit.
+
 Semantics of ``localexpstereo_tpu.ops.unary_volume.sample_slabs_aligned``:
 the JAX package contracts each window's [D, F, F] slab with the tent
 ``max(0, 1 - |g - dv|)``, ``dv = clip(d - min_disp, 0, D-1)``. The tent has
@@ -18,17 +35,24 @@ weights: the same sum (adding the zero taps is exact) without the slab.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from ..config import COST_FOR_INVALID
+
+#: A disparity shard's (first owned plane, owned planes, planes of the
+#: whole volume).
+DShard = Tuple[int, int, int]
 
 
 def sample_windows_aligned(vol: torch.Tensor, vol_pad: int,
                            proposals: torch.Tensor, fox: torch.Tensor,
                            foy: torch.Tensor, size: int, height: int,
                            width: int, *, min_disp: float, th_col: float,
-                           scale: float = 1.0,
-                           zero: float = 0.0) -> torch.Tensor:
+                           scale: float = 1.0, zero: float = 0.0,
+                           row_base: Optional[int] = None,
+                           dshard: Optional[DShard] = None) -> torch.Tensor:
     """Raw matching cost of each proposal over its F x F window.
 
     Args:
@@ -38,10 +62,13 @@ def sample_windows_aligned(vol: torch.Tensor, vol_pad: int,
       proposals: [N, 4]; fox, foy: [N] global window origins (may be < 0).
       scale, zero: uint8 decode ``q * scale + zero``, applied after the
         contraction (exact, the tent weights sum to 1).
+      row_base, dshard: a shard's geometry (module docstring).
     Returns:
-      [N, F, F] float32 costs truncated at ``th_col``, 0 outside the image.
+      [N, F, F] float32 costs truncated at ``th_col``, 0 outside the image
+      (with ``dshard``, also 0 at the pixels another rank owns).
     """
-    d_, hv, wv = vol.shape
+    _, hv, wv = vol.shape
+    d_ = vol.shape[0] if dshard is None else dshard[2]
     dev = proposals.device
     it = torch.arange(size, dtype=torch.float32, device=dev)
     xs = fox.to(torch.float32)[:, None, None] + it[None, None, :]
@@ -59,29 +86,56 @@ def sample_windows_aligned(vol: torch.Tensor, vol_pad: int,
     ilo = lo.to(torch.int64)
     ihi = torch.clamp(ilo + 1, max=d_ - 1)
 
-    iy = torch.clamp(foy.to(torch.int64)[:, None, None] + vol_pad
+    iy = torch.clamp(foy.to(torch.int64)[:, None, None]
+                     + (vol_pad if row_base is None else row_base)
                      + torch.arange(size, device=dev)[None, :, None],
                      0, hv - 1)
     ix = torch.clamp(fox.to(torch.int64)[:, None, None] + vol_pad
                      + torch.arange(size, device=dev)[None, None, :],
                      0, wv - 1)
     pix = iy * wv + ix                                    # [N, F, F]
-    flat = vol.reshape(-1)
-    plane = hv * wv
-    v_lo = flat[ilo * plane + pix].to(torch.float32)
-    v_hi = flat[ihi * plane + pix].to(torch.float32)
+    tap = _tap_reader(vol, pix, dshard)
+    v_lo = tap(ilo)
+    v_hi = tap(ihi)
     cost = (v_lo * w_lo + v_hi * w_hi) * scale + zero
     cost = torch.where(finite, cost, COST_FOR_INVALID)
     cost = torch.clamp(cost, max=th_col)
     in_image = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height)
-    return torch.where(in_image, cost, 0.0)
+    return torch.where(_owned(in_image, ilo, dshard), cost, 0.0)
+
+
+def _tap_reader(vol: torch.Tensor, pix: torch.Tensor,
+                dshard: Optional[DShard]):
+    """``tap(g)``: float32 values of global planes ``g`` ([N, F, F] int64)
+    at ``pix``; on a disparity shard from its local planes, the index
+    clamped into them (a pixel of another owner reads any local plane)."""
+    flat = vol.reshape(-1)
+    plane = vol.shape[1] * vol.shape[2]
+    if dshard is None:
+        return lambda g: flat[g * plane + pix].to(torch.float32)
+    first = dshard[0] - 1
+    top = vol.shape[0] - 1
+    return lambda g: flat[torch.clamp(g - first, 0, top) * plane
+                          + pix].to(torch.float32)
+
+
+def _owned(mask: torch.Tensor, primary: torch.Tensor,
+           dshard: Optional[DShard]) -> torch.Tensor:
+    """``mask``, on a disparity shard also limited to the pixels whose
+    primary tap plane it owns."""
+    if dshard is None:
+        return mask
+    d_base, d_owned, _ = dshard
+    return mask & (primary >= d_base) & (primary < d_base + d_owned)
 
 
 def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
                    fox: torch.Tensor, foy: torch.Tensor, size: int,
                    height: int, width: int, *, min_disp: float,
                    max_disp: float, th_col: float, method: int,
-                   scale: float = 1.0, zero: float = 0.0) -> torch.Tensor:
+                   scale: float = 1.0, zero: float = 0.0,
+                   row_base: Optional[int] = None,
+                   dshard: Optional[DShard] = None) -> torch.Tensor:
     """Raw matching cost of each proposal over its F x F window by
     d-interpolation ``method`` (``CostVolumeEnergy.h:69-118``; the JAX
     package's full-volume gather, each tap decoded before it is
@@ -99,17 +153,20 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
     Args: as :func:`sample_windows_aligned`, and ``max_disp`` (method 1's
       upper branch) and ``method`` (0, 1 or 2).
     Returns:
-      [N, F, F] float32 costs truncated at ``th_col``, 0 outside the image.
+      [N, F, F] float32 costs truncated at ``th_col``, 0 outside the image
+      (with ``dshard``, also 0 at the pixels another rank owns).
     """
     if method not in (0, 1, 2):
         raise ValueError(f"unknown interpolation method {method}")
-    d_, hv, wv = vol.shape
+    _, hv, wv = vol.shape
+    d_ = vol.shape[0] if dshard is None else dshard[2]
+    row0 = vol_pad if row_base is None else row_base
     dev = proposals.device
     it = torch.arange(size, device=dev)
     ys = foy.to(torch.int64)[:, None, None] + it[None, :, None]
     xs = fox.to(torch.int64)[:, None, None] + it[None, None, :]
     in_image = (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height)
-    pix = ((torch.clamp(ys, 0, height - 1) + vol_pad) * wv
+    pix = (torch.clamp(torch.clamp(ys, 0, height - 1) + row0, 0, hv - 1) * wv
            + torch.clamp(xs, 0, width - 1) + vol_pad)      # [N, F, F]
     a = proposals[:, 0][:, None, None]
     b = proposals[:, 1][:, None, None]
@@ -121,12 +178,11 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
     # conversion, which is what the JAX package's saturating one gives.
     d_safe = torch.where(finite, d, 0.0)
     d0_off = float(int(-min_disp))             # CostVolumeEnergy.h:68
-    flat = vol.reshape(-1)
-    plane = hv * wv
+    read = _tap_reader(vol, pix, dshard)
     decode = scale != 1.0 or zero != 0.0
 
     def tap(dslice: torch.Tensor) -> torch.Tensor:
-        v = flat[dslice.to(torch.int64) * plane + pix].to(torch.float32)
+        v = read(dslice.to(torch.int64))
         return v * scale + zero if decode else v
 
     def index(x: torch.Tensor) -> torch.Tensor:
@@ -135,10 +191,14 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
     first = torch.zeros_like(pix)
     last = torch.full_like(pix, d_ - 1)
     if method == 0:
-        cost = tap(index(torch.floor(d_safe + 0.5) + d0_off))
+        primary = index(torch.floor(d_safe + 0.5) + d0_off)
+        cost = tap(primary)
     elif method == 1:
         df = torch.floor(d_safe)
         dd0 = df + d0_off
+        primary = torch.where(d_safe < min_disp, 0.0,
+                              torch.where(d_safe >= max_disp, float(d_ - 1),
+                                          index(dd0)))
         f1 = d - df
         lin = (1.0 - f1) * tap(index(dd0)) + f1 * tap(index(dd0 + 1.0))
         lin = torch.where((dd0 < 0) | (dd0 + 1.0 >= d_), COST_FOR_INVALID,
@@ -147,7 +207,7 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
                            torch.where(d >= max_disp, tap(last), lin))
     else:
         nearest = torch.floor(d_safe + 0.5) + d0_off
-        di = index(nearest)
+        di = primary = index(nearest)
         d1i = torch.clamp(di - 1.0, min=0.0)
         d3i = torch.clamp(di + 1.0, max=float(d_ - 1))
         y1, y2, y3 = tap(d1i), tap(di), tap(d3i)
@@ -165,4 +225,5 @@ def sample_windows(vol: torch.Tensor, vol_pad: int, proposals: torch.Tensor,
     cost = torch.where(finite, cost, COST_FOR_INVALID)
     cost = torch.minimum(cost, torch.tensor(th_col, dtype=torch.float32,
                                             device=dev))
-    return torch.where(in_image, cost, 0.0)
+    return torch.where(_owned(in_image, primary.to(torch.int64), dshard),
+                       cost, 0.0)

@@ -23,12 +23,17 @@ from __future__ import annotations
 import numpy as np
 
 
+def problem_shape(scale: float):
+    """(h, w, nd) of :func:`build_problem` at ``scale``, without building
+    it."""
+    return (max(int(992 * scale), 64), max(int(1436 * scale), 96),
+            max(int(145 * scale), 16))
+
+
 def build_problem(scale: float, seed: int = 0):
     """Returns (image [h, w, 3] float32 0..255, volume [nd, h, w] float32,
     h, w, nd, truth [h, w] float32)."""
-    return planted_problem(max(int(992 * scale), 64),
-                           max(int(1436 * scale), 96),
-                           max(int(145 * scale), 16), seed)
+    return planted_problem(*problem_shape(scale), seed)
 
 
 def pan_frames(h: int, w: int, nd: int, frames: int, step: int = 2,

@@ -487,3 +487,49 @@ def test_replica_workers_on_card_equal_in_process(cuda):
         assert all(rs.pair_stats(k)["launches"]["expansion_accept"] > 0
                    for k in range(b))
     assert np.array_equal(finals[0], finals[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,rows", [(54, 129, (18, 36)), (6, 387, (2, 5))])
+def test_expansion_kernel_plan_n_on_a_row_slice(cuda, n, s, rows):
+    """A height shard's call: a slice of the regions with ``plan_n`` the
+    whole batch's N launches the whole call's plan and returns exactly its
+    rows (the main path's S = 129 and 387); the plain version ignores
+    ``plan_n``."""
+    args, lam, tau = _expansion_problem(cuda, n, s)
+    kw = dict(lam=lam, tau=tau, max_global_rounds=16,
+              sweeps_per_round=64 if s >= 256 else 16)
+    full = mincut_cuda.expansion_accept(*args, **kw)
+    part = [a[rows[0]:rows[1]] for a in args]
+    got = mincut_cuda.expansion_accept(*part, plan_n=n, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, full[rows[0]:rows[1]])
+    plain = [a.cpu() for a in part]
+    assert torch.equal(
+        mincut_cuda.expansion_accept(*plain, plan_n=n, **kw),
+        mincut_cuda.expansion_accept(*plain, **kw))
+    assert torch.equal(got.cpu(), mincut_cuda.expansion_accept(*plain, **kw))
+
+
+def _sharded_problem():
+    from localexpstereo_tpu_torch.tools import multichip
+    img, vol = multichip.small_problem(48, 64, 12, 3)
+    return img, vol, 11.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["volume", "dvolume"])
+def test_sharded_solve_on_card_equals_single(cuda, kind):
+    """Two ranks on cuda:0 (gloo): the height- and the disparity-sharded
+    solves (1 + 1, layers [4, 8]) equal the single-device solve on the
+    card, bit for bit, on both ranks."""
+    from localexpstereo_tpu_torch.parallel import collectives
+    from localexpstereo_tpu_torch.tools import multichip
+    img, vol, md = _sharded_problem()
+    ref = multichip.solve_single(img, vol, md, [4, 8], 7, "cuda:0")
+    outs = collectives.launch(multichip.solve, ["cuda:0", "cuda:0"], kind,
+                              img, vol, md, [4, 8], 7, timeout_s=600)
+    assert [o["collective_calls"] > 0 for o in outs] == [True, True]
+    for o in outs:
+        assert np.array_equal(o["labels"], ref["labels"])
+        assert np.array_equal(o["cost"], ref["cost"])

@@ -223,7 +223,8 @@ def test_dma_solve_matches_jax(dma_solves):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """The package imports and solves on the CPU with jax unimportable."""
+    """The package, its parallel modules included, imports and solves on
+    the CPU with jax unimportable."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -232,6 +233,11 @@ def test_port_runs_without_jax(tmp_path):
         import localexpstereo_tpu_torch
         from localexpstereo_tpu_torch.config import PARAMS_GF
         from localexpstereo_tpu_torch.models import engine
+        from localexpstereo_tpu_torch.parallel import (batch, collectives,
+                                                       dvolume, mesh,
+                                                       replica, spatial,
+                                                       volume)
+        from localexpstereo_tpu_torch.tools import multichip
         from localexpstereo_tpu_torch.utils import synthetic
         img, vol, h, w, nd, truth = synthetic.build_problem(0.03)
         s = engine.LocalExpansionSolver(
