@@ -196,7 +196,11 @@ def solve_preflow(e: torch.Tensor, capt: torch.Tensor, cap_fw: torch.Tensor,
     CUDA kernels' per-region loops. ``stats``, if given, receives each
     region's work in those per-region loops as [N] int64 tensors:
     "rounds", "bfs_passes" (relaxation passes of every global relabel,
-    the final one included) and "sweeps".
+    the final one included) and "sweeps"; and "active_left", the nodes
+    left with excess that can still reach the sink after the final global
+    relabel. ``active_left == 0`` is the exactness certificate: the
+    preflow is maximal, so the cut is a minimum cut; a region the round
+    cap truncated has ``active_left > 0``.
     """
     n, s = e.shape[0], e.shape[-1]
     hmax = float(s * s + 2)
@@ -229,17 +233,27 @@ def solve_preflow(e: torch.Tensor, capt: torch.Tensor, cap_fw: torch.Tensor,
                 break
             k += 1
         rounds += 1
-    return _bfs(capt, fw0, capfw, hmax,
-                stats["bfs_passes"] if count else None) >= hmax
+    dist = _bfs(capt, fw0, capfw, hmax,
+                stats["bfs_passes"] if count else None)
+    if count:
+        stats["active_left"] = ((e > EPS) & (dist < hmax)).flatten(1).sum(1)
+    return dist >= hmax
 
 
 def mincut_accept(t0, t1, c00, c01, c10, max_global_rounds: int = 64,
-                  sweeps_per_round: int = 16) -> torch.Tensor:
+                  sweeps_per_round: int = 16, with_stats: bool = False):
     """Solves the batched expansion move; accept[p] == True means pixel p
-    takes the proposal (source side)."""
+    takes the proposal (source side). With ``with_stats``, returns
+    (accept, rounds, active_left) as the JAX package's ``mincut_accept``
+    does: the batch's global-relabel rounds and its nodes left active
+    (0 certifies every region's cut exact), as int64 scalar tensors."""
     e, cap_t, cap_fw = build_graph(t0, t1, c00, c01, c10)
-    return solve_preflow(e, cap_t, cap_fw, max_global_rounds,
-                         sweeps_per_round)
+    stats = {} if with_stats else None
+    accept = solve_preflow(e, cap_t, cap_fw, max_global_rounds,
+                           sweeps_per_round, stats)
+    if with_stats:
+        return accept, stats["rounds"].max(), stats["active_left"].sum()
+    return accept
 
 
 def move_energy_delta(accept: torch.Tensor, t0, t1, c00, c01, c10):

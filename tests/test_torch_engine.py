@@ -237,7 +237,8 @@ def test_port_runs_without_jax(tmp_path):
                                                        dvolume, mesh,
                                                        replica, spatial,
                                                        volume)
-        from localexpstereo_tpu_torch.tools import multichip
+        from localexpstereo_tpu_torch.tools import (gc_cap_audit,
+                                                    mccnn_v3_eval, multichip)
         from localexpstereo_tpu_torch.utils import synthetic
         img, vol, h, w, nd, truth = synthetic.build_problem(0.03)
         s = engine.LocalExpansionSolver(
