@@ -59,28 +59,24 @@ def random_perturbation(key, cell_labels, ox, oy, cw, ch, dz: float,
                         nr: float, min_disp: float, max_disp: float,
                         max_vdisp: float = 0.0) -> torch.Tensor:
     """[N, 4] perturbation proposals with disparity half-width ``dz`` and
-    normal jitter radius ``nr`` (``Proposer.h:93-96,142``).
-
-    After the gather of each region's base label, the proposal is computed
-    on the host and returned on the labels' device: N labels, and the
-    card's cos, sin and rsqrt round otherwise than the CPU's, so a card
-    computing them itself would propose other planes than its CPU twin."""
+    normal jitter radius ``nr`` (``Proposer.h:93-96,142``)."""
     kp, kz, kn, kv = rng.split(key, 4)
     dev = ox.device
     xx, yy = _cell_pixel(kp, ox, oy, cw, ch)
-    base = _label_at(cell_labels, xx, yy).cpu()
-    gx = (ox + xx).to("cpu", torch.float32)
-    gy = (oy + yy).to("cpu", torch.float32)
+    base = _label_at(cell_labels, xx, yy)
+    gx = (ox + xx).to(torch.float32)
+    gy = (oy + yy).to(torch.float32)
     zs = plane_ops.disparity_at(base, gx, gy)
-    dz = torch.tensor(dz, dtype=torch.float32)
-    nr = torch.tensor(nr, dtype=torch.float32)
+    dz = torch.tensor(dz, dtype=torch.float32, device=dev)
+    nr = torch.tensor(nr, dtype=torch.float32, device=dev)
 
     minz = torch.clamp(zs - dz, min=min_disp)
     maxz = torch.clamp(zs + dz, max=max_disp)
-    z_new = rng.uniform(kz, tuple(zs.shape)) * (maxz - minz) + minz
+    z_new = rng.uniform(kz, tuple(zs.shape), device=dev) * (maxz - minz) + minz
 
     n0 = plane_ops.get_normal(base)
-    jitter = plane_ops.random_unit_vector(kn, math.pi, tuple(zs.shape)) * nr
+    jitter = plane_ops.random_unit_vector(kn, math.pi, tuple(zs.shape),
+                                          device=dev) * nr
     n1 = n0 + jitter
     n1 = n1 / torch.linalg.vector_norm(n1, dim=-1, keepdim=True)
 
@@ -89,10 +85,11 @@ def random_perturbation(key, cell_labels, ox, oy, cw, ch, dz: float,
         vs = base[:, 3]
         minv = torch.clamp(vs - dv, min=-max_vdisp)
         maxv = torch.clamp(vs + dv, max=max_vdisp)
-        v_new = rng.uniform(kv, tuple(vs.shape)) * (maxv - minv) + minv
+        v_new = (rng.uniform(kv, tuple(vs.shape), device=dev) * (maxv - minv)
+                 + minv)
     else:
         v_new = base[:, 3]
-    return plane_ops.create_plane(n1, z_new, gx, gy, v_new).to(dev)
+    return plane_ops.create_plane(n1, z_new, gx, gy, v_new)
 
 
 def random_proposal_count(k_max: int, outer_iter: int, min_disp: float,
@@ -110,12 +107,7 @@ def random_proposal_count(k_max: int, outer_iter: int, min_disp: float,
 
 
 def _solve3x3(a: torch.Tensor, atb: torch.Tensor):
-    """Batched 3x3 solve via the adjugate; returns (solution, ok_mask).
-
-    Every step is an elementwise float32 operation, which rounds alike on
-    every device; ``adj @ atb`` is written out as three products summed
-    left to right (what the CPU's batched matmul gives for it bit for
-    bit), where a matmul on the card would round in its library's order."""
+    """Batched 3x3 solve via the adjugate; returns (solution, ok_mask)."""
     det = (a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
            - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
            + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]))
@@ -132,9 +124,8 @@ def _solve3x3(a: torch.Tensor, atb: torch.Tensor):
     ], dim=-1).reshape(*a.shape[:-2], 3, 3)
     ok = torch.abs(det) > 1e-12
     safe_det = torch.where(ok, det, 1.0)
-    sol = (adj[..., 0] * atb[..., 0, None] + adj[..., 1] * atb[..., 1, None]
-           + adj[..., 2] * atb[..., 2, None])
-    return sol / safe_det[..., None], ok
+    sol = torch.einsum("...ij,...j->...i", adj, atb) / safe_det[..., None]
+    return sol, ok
 
 
 def refit_sums(feats: torch.Tensor, weight: torch.Tensor, d: torch.Tensor):
@@ -142,19 +133,14 @@ def refit_sums(feats: torch.Tensor, weight: torch.Tensor, d: torch.Tensor):
     inputs' device) of the weighted least-squares plane fit to ``d`` [N, P]
     at ``feats`` [N, P, 3] (cell-local x, y, 1) with 0/1 ``weight`` [N, P].
 
-    The sums run on the host for every device, as the CPU runs them: a
-    float32 sum of P products rounds by its order, which is the library's
-    and differs between the CPU and the card, so a card summing on its own
-    would part from its CPU twin's refit, and its solve from the twin's.
-    They stay float32 sums, as the JAX package's are: float64 sums give the
-    correctly rounded value, which the reference's own refit is not, and
-    move the port off the reference's trajectory on near-tied moves. The
-    copy is a few MB a call at most (N x P x 5 values)."""
-    dev = d.device
-    feats, weight, d = feats.cpu(), weight.cpu(), d.cpu()
+    Float32 sums of P products, as the JAX package's: they round by the
+    library's order, which differs between the CPU and the card (ROADMAP
+    C8). Sums that do not depend on the order (float64, or a fixed pairwise
+    tree of float32 adds) move the port off the reference's float32 refit
+    on near-tied moves."""
     fw = feats * weight[..., None]
-    return (torch.einsum("npi,npj->nij", fw, feats).to(dev),
-            torch.einsum("npi,np->ni", fw, d * weight).to(dev))
+    return (torch.einsum("npi,npj->nij", fw, feats),
+            torch.einsum("npi,np->ni", fw, d * weight))
 
 
 def ransac(key, cell_labels, ox, oy, cw, ch,

@@ -63,14 +63,13 @@ def _f32(x: float) -> torch.Tensor:
 
 
 def random_unit_vector(key: torch.Tensor, angle_range: float = math.pi,
-                       shape: tuple = ()) -> torch.Tensor:
+                       shape: tuple = (), device=None) -> torch.Tensor:
     """Random unit vector within ``angle_range`` of +z (``Utilities.hpp:254-261``):
-    theta ~ U(0, 2pi), z ~ U(cos(angle_range), 1), r = sqrt(1 - z^2); on
-    the host."""
+    theta ~ U(0, 2pi), z ~ U(cos(angle_range), 1), r = sqrt(1 - z^2)."""
     k1, k2 = rng.split(key)
-    theta = rng.uniform(k1, shape, 0.0, 2.0 * math.pi)
+    theta = rng.uniform(k1, shape, 0.0, 2.0 * math.pi, device=device)
     zmin = torch.cos(_f32(angle_range))
-    z = rng.uniform(k2, shape, zmin, 1.0)
+    z = rng.uniform(k2, shape, zmin, 1.0, device=device)
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta), z], -1)
 
@@ -79,20 +78,14 @@ def random_label(key: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                  min_disp: float, max_disp: float,
                  max_vdisp: float = 0.0) -> torch.Tensor:
     """Random label at pixels (x, y): z ~ U(min, max), normal within pi/3 of
-    the optical axis (``StereoEnergy.h:120-129``).
-
-    Computed on the host and returned on ``x``'s device: one label a cell,
-    and the card's cos and sin round otherwise than the CPU's, so a card
-    computing them itself would start its solve from other labels than its
-    CPU twin."""
+    the optical axis (``StereoEnergy.h:120-129``)."""
     kz, kn, kv = rng.split(key, 3)
     shape = tuple(x.shape)
     dev = x.device
-    z = rng.uniform(kz, shape, min_disp, max_disp)
-    n = random_unit_vector(kn, math.pi / 3, shape)
+    z = rng.uniform(kz, shape, min_disp, max_disp, device=dev)
+    n = random_unit_vector(kn, math.pi / 3, shape, device=dev)
     if max_vdisp != 0.0:
-        v = rng.uniform(kv, shape, -max_vdisp, max_vdisp)
+        v = rng.uniform(kv, shape, -max_vdisp, max_vdisp, device=dev)
     else:
-        v = torch.zeros(shape, dtype=torch.float32)
-    return create_plane(n, z, x.to("cpu", torch.float32),
-                        y.to("cpu", torch.float32), v).to(dev)
+        v = torch.zeros(shape, dtype=torch.float32, device=dev)
+    return create_plane(n, z, x.to(torch.float32), y.to(torch.float32), v)

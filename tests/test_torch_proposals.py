@@ -98,75 +98,30 @@ def test_random_proposal_count():
                     == jprop.random_proposal_count(7, outer, lo, hi))
 
 
-def _normal_equations(seed, n=4000):
-    """Random [n, 3, 3] normal equations of plane fits and right sides, and
-    3-point systems with integer coordinates (RANSAC's hypotheses)."""
-    r = np.random.default_rng(seed)
-    x = r.normal(size=(n, 20, 3)).astype(np.float32) * np.float32(10)
-    x[..., 2] = 1.0
-    ata = np.einsum("npi,npj->nij", x, x).astype(np.float32)
-    atb = (r.normal(size=(n, 3)) * 100).astype(np.float32)
-    pts = np.concatenate([r.integers(0, 130, (n, 3, 2)),
-                          np.ones((n, 3, 1))], -1).astype(np.float32)
-    d = r.uniform(0, 60, (n, 3)).astype(np.float32)
-    return (ata, atb), (pts, d)
-
-
-def _solve3x3_with_matmul(a, atb):
-    """The 3x3 solve with adj @ atb as a batched matmul (its form before it
-    was written out)."""
-    m = a
-    det = (m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
-           - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
-           + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0]))
-    adj = torch.stack([
-        m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1],
-        m[..., 0, 2] * m[..., 2, 1] - m[..., 0, 1] * m[..., 2, 2],
-        m[..., 0, 1] * m[..., 1, 2] - m[..., 0, 2] * m[..., 1, 1],
-        m[..., 1, 2] * m[..., 2, 0] - m[..., 1, 0] * m[..., 2, 2],
-        m[..., 0, 0] * m[..., 2, 2] - m[..., 0, 2] * m[..., 2, 0],
-        m[..., 0, 2] * m[..., 1, 0] - m[..., 0, 0] * m[..., 1, 2],
-        m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0],
-        m[..., 0, 1] * m[..., 2, 0] - m[..., 0, 0] * m[..., 2, 1],
-        m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0],
-    ], dim=-1).reshape(*m.shape[:-2], 3, 3)
-    ok = torch.abs(det) > 1e-12
-    safe = torch.where(ok, det, 1.0)
-    return torch.einsum("...ij,...j->...i", adj, atb) / safe[..., None], ok
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_solve3x3_contraction_is_the_cpu_matmuls(seed):
-    """The 3x3 solve contracts adj @ atb as three products summed left to
-    right, elementwise (one rounding order on every device): on the CPU
-    that is the batched matmul's result bit for bit, so the CPU's solves
-    are what they were. Checked on fits and on RANSAC's hypotheses; the ok
-    masks equal the JAX package's."""
-    for a, b in _normal_equations(seed):
-        a, b = torch.as_tensor(a), torch.as_tensor(b)
-        got, ok = tprop._solve3x3(a, b)
-        want, want_ok = _solve3x3_with_matmul(a, b)
-        assert torch.equal(ok, want_ok)
-        assert torch.equal(got, want)
-        jok = np.asarray(jax.jit(jprop._solve3x3)(jnp.asarray(a.numpy()),
-                                                  jnp.asarray(b.numpy()))[1])
-        np.testing.assert_array_equal(ok.numpy(), jok)
-
-
-def test_refit_sums_are_the_cpu_float32_sums():
-    """The refit's normal equations: float32, on the input's device, equal
-    to the CPU's float32 einsum bit for bit."""
-    r = np.random.default_rng(3)
-    n, s = 7, 43
+@pytest.mark.parametrize("s", [8, 43, 129])
+def test_refit_sums_are_the_cpu_float32_sums(s):
+    """The refit's normal equations: float32 on the input's device, each
+    within the float32 error bound of a sum of rounded products in any
+    order, (P + 1) u sum |terms|, of the exact (float64) sums, as the JAX
+    package's einsums are on the same inputs."""
+    r = np.random.default_rng(s)
+    n = 7
     iy, ix = np.mgrid[0:s, 0:s].astype(np.float32)
-    feats = torch.as_tensor(np.stack([ix.ravel(), iy.ravel(),
-                                      np.ones(s * s, np.float32)], -1))
-    feats = feats.expand(n, s * s, 3).contiguous()
-    w = torch.as_tensor((r.random((n, s * s)) < 0.6).astype(np.float32))
-    d = torch.as_tensor(r.uniform(0, 60, (n, s * s)).astype(np.float32))
-    ata, atb = tprop.refit_sums(feats, w, d)
-    assert ata.dtype == atb.dtype == torch.float32
-    assert ata.shape == (n, 3, 3) and atb.shape == (n, 3)
+    feats = np.stack([ix.ravel(), iy.ravel(), np.ones(s * s, np.float32)],
+                     -1)[None].repeat(n, 0)
+    w = (r.random((n, s * s)) < 0.6).astype(np.float32)
+    d = r.uniform(0, 300, (n, s * s)).astype(np.float32)
+    got = tprop.refit_sums(*map(torch.as_tensor, (feats, w, d)))
     fw = feats * w[..., None]
-    assert torch.equal(ata, torch.einsum("npi,npj->nij", fw, feats))
-    assert torch.equal(atb, torch.einsum("npi,np->ni", fw, d * w))
+    jax_sums = (jnp.einsum("npi,npj->nij", fw, feats),
+                jnp.einsum("npi,np->ni", fw, d * w))
+    f64 = feats.astype(np.float64)
+    fw64 = f64 * w[..., None]
+    for g, j, terms in zip(got, jax_sums, (
+            fw64[..., :, None] * f64[..., None, :],
+            fw64 * (d.astype(np.float64) * w)[..., None])):
+        assert g.dtype == torch.float32 and g.shape == j.shape
+        want = terms.sum(1)
+        bound = (s * s + 1) * 2.0 ** -24 * np.abs(terms).sum(1)
+        assert (np.abs(g.numpy() - want) <= bound).all()
+        assert (np.abs(np.asarray(j) - want) <= bound).all()
