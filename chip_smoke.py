@@ -166,15 +166,31 @@ Phases, each printing JSON lines:
             warp-consistent 1436 x 992 x 145 pair, its MC-CNN volume (WTA
             bad rates) and the tool's 2 + 5 solve (bad rates), beside the
             JAX tool's artifact; WTA bad1.0 and the solve's bad1.0 held to
-            MCCNN_V3_LIMITS.
+            MCCNN_V3_LIMITS;
+21. train:  ``tools/train_mccnn.py`` on the card at full width (channels
+            32, 32, 64, 64, 4096 pixel pairs a step, 600 steps, Adam 3e-4)
+            on four synthetic V2 scenes at the MiddV2 size (375 x 450 x
+            60, ``synthetic.write_v2_scene`` seeds 0-3 as cones, teddy,
+            venus and tsukuba, in a temporary directory under ``build/``):
+            first one hinge-loss step on the card against the CPU (loss,
+            accuracy and each gradient tensor, held to TRAIN_LOSS_RTOL /
+            TRAIN_ACC_ATOL / TRAIN_GRAD_RTOL); then the run's printed rows
+            (train and held-out hinge and accuracy), its seconds and peak
+            memory, the step's median ms (CUDA events) beside its bound;
+            then the written weights' tsukuba volume: WTA bad1.0 on the
+            non-occluded pixels under the trained and the initial weights,
+            and the 2 + 5 ``auto`` solve on it (``mccnn_v3_eval.solve``):
+            bad1.0 and the kernels' launches. Fails unless every loss is
+            finite, the held-out hinge fell, the trained WTA beats the
+            initial one and the solve launched ``expansion_accept``.
 
 A full run takes the phases in this order but runs ``oracle`` after
-``mincut_kernel``, ``mccnn_v3`` after ``mccnn``, ``sharded`` after
+``mincut_kernel``, ``mccnn_v3`` and ``train`` after ``mccnn``, ``sharded`` after
 ``batch``, then ``small``, and ``bf_interp`` last: their CPU solves run meanwhile in two
 worker processes that do not see the card. Then a ``{"kernels": [...]}`` line (launches from the
 ``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream``,
-``cli_mccnn``, ``batch``, ``bf_interp``, ``sharded``, ``oracle`` and
-``mccnn_v3`` runs' beside them), the
+``cli_mccnn``, ``batch``, ``bf_interp``, ``sharded``, ``oracle``,
+``mccnn_v3`` and ``train`` runs' beside them), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -285,6 +301,15 @@ ORACLE_REGIONS = {42: 6, 129: 3, 387: 2}
 #: The mccnn_v3 phase's limits, in percent: WTA bad1.0 and the solve's
 #: bad1.0 (the JAX tool's artifact: 1.967 and 0.569).
 MCCNN_V3_LIMITS = (2.5, 1.0)
+#: The train phase: the four V2 scenes' size (MiddV2's, cones' disparity
+#: count); the card's one hinge-loss step against the CPU's: the loss
+#: within TRAIN_LOSS_RTOL, each gradient tensor within TRAIN_GRAD_RTOL of
+#: its largest entry (tests/test_torch_train_mccnn.py's tolerances against
+#: JAX), the accuracy within TRAIN_ACC_ATOL (a near-tied pixel or two of
+#: the 4096); the steps timed after the run.
+TRAIN_SCENE = (375, 450, 60)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_ACC_ATOL = 1e-6, 1e-5, 1e-3
+TRAIN_TIMED_STEPS = 20
 
 
 def emit(obj) -> None:
@@ -2318,8 +2343,142 @@ def phase_mccnn_v3(torch):
     return row
 
 
+def train_bound(h: int, w: int, channels, n_params: int):
+    """(ms, by) of one training step: the towers' convolutions on both
+    images, forward, the weights' gradients and the inputs' gradients (the
+    first layer's image needs none), in float32; the images read once and
+    the weights, their gradients and Adam's two moments read and written
+    once."""
+    c_in, layers = 3, []
+    for c_out in channels:
+        layers.append(2 * 9 * c_in * c_out * h * w)
+        c_in = c_out
+    fwd = sum(layers)
+    nops = 2 * (fwd + fwd + (fwd - layers[0]))
+    return bound(2 * h * w * 3 * 4 + 4 * 4 * 2 * n_params, nops)
+
+
+def phase_train(torch):
+    """tools/train_mccnn.py on the card at full width: four MiddV2-sized
+    synthetic V2 scenes (cones, teddy, venus; tsukuba held out) in a
+    temporary directory under build/; one hinge-loss step and its
+    gradients on the card against the CPU; the tool's 600 steps; the step
+    timed; then the written weights' tsukuba volume (WTA bad1.0 on the
+    non-occluded pixels, against the initial weights') and the 2 + 5 solve
+    on it (mccnn_v3_eval.solve, auto), which launches expansion_accept."""
+    import tempfile
+    from localexpstereo_tpu_torch.models import mccnn
+    from localexpstereo_tpu_torch.ops import rng
+    from localexpstereo_tpu_torch.tools import mccnn_v3_eval
+    from localexpstereo_tpu_torch.tools import train_mccnn as tool
+    from localexpstereo_tpu_torch.utils import datasets, synthetic
+    h, w, nd = TRAIN_SCENE
+    CLI_DIR.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CLI_DIR.parent) as tmp:
+        t0 = time.perf_counter()
+        for seed, name in enumerate(tool.TRAIN + (tool.HOLDOUT,)):
+            synthetic.write_v2_scene(str(pathlib.Path(tmp) / name), h, w, nd,
+                                     seed=seed)
+        scenes_s = time.perf_counter() - t0
+
+        init = mccnn.init_params_from_key(rng.PRNGKey(0))
+        key = rng.split(rng.PRNGKey(0))[1]       # the run's first batch key
+        one = {}
+        for dev in ("cuda", "cpu"):
+            net = mccnn.params_from_jax(init).to(dev).requires_grad_(True)
+            loss, acc = tool.hinge_loss(
+                net, *tool.load(tmp, tool.TRAIN[0], dev), key)
+            loss.backward()
+            one[dev] = {"loss": float(loss.detach()), "acc": float(acc),
+                        "grads": {f"{kind}{i}": getattr(conv, attr).grad.cpu()
+                                  for i, conv in enumerate(net.convs)
+                                  for kind, attr in (("w", "weight"),
+                                                     ("b", "bias"))}}
+        gpu, cpu = one["cuda"], one["cpu"]
+        grad_gaps = {k: float((g - cpu["grads"][k]).abs().max()
+                              / cpu["grads"][k].abs().max())
+                     for k, g in gpu["grads"].items()}
+        loss_gap = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        acc_gap = abs(gpu["acc"] - cpu["acc"])
+        step_ok = (loss_gap <= TRAIN_LOSS_RTOL
+                   and max(grad_gaps.values()) <= TRAIN_GRAD_RTOL
+                   and acc_gap <= TRAIN_ACC_ATOL)
+        emit({"phase": "train", "part": "card_vs_cpu",
+              "loss": gpu["loss"], "loss_cpu": cpu["loss"],
+              "loss_rel_gap": loss_gap, "acc_gap": acc_gap,
+              "grad_rel_gap": grad_gaps, "loss_rtol": TRAIN_LOSS_RTOL,
+              "grad_rtol": TRAIN_GRAD_RTOL, "acc_atol": TRAIN_ACC_ATOL,
+              "ok": step_ok})
+        if not step_ok:
+            raise AssertionError("the card's hinge-loss step disagrees with "
+                                 "the CPU's")
+
+        out = str(pathlib.Path(tmp) / "w.npz")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        rows = tool.main(["--data", tmp, "--out", out, "--device", "cuda"])
+        train_s = time.perf_counter() - t0
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        trained = mccnn.load_params(out)
+
+        # The step alone, timed on a copy of the trained weights.
+        net = mccnn.params_from_jax(trained).to("cuda").requires_grad_(True)
+        opt = tool.adam(net)
+        scene = tool.load(tmp, tool.TRAIN[0], "cuda")
+        keys = iter(rng.split(rng.PRNGKey(1), TRAIN_TIMED_STEPS + 1))
+        step_ms = time_ms(torch, lambda: tool.train_step(
+            net, opt, scene, next(keys)), TRAIN_TIMED_STEPS)
+        bound_ms, bound_by = train_bound(
+            h, w, [c.out_channels for c in net.convs],
+            sum(p.numel() for p in net.parameters()))
+
+        pair = datasets.load_data(str(pathlib.Path(tmp) / tool.HOLDOUT), 0)
+        truth = pair.disp_gt
+        mask = pair.nonocc & np.isfinite(truth)
+
+        def bad1(disp):
+            return float(100.0 * (np.abs(disp - truth)[mask] > 1.0).mean())
+
+        vols, wta_bad1 = {}, {}
+        for name, params in (("trained", trained), ("initial", init)):
+            vols[name] = mccnn.cost_volume(
+                mccnn.params_from_jax(params).to("cuda"), pair.im0, pair.im1,
+                pair.ndisp)
+            wta_bad1[name] = bad1(
+                torch.argmin(vols[name], 0).float().cpu().numpy())
+        del vols["initial"]
+        fns = reset_launches()
+        disp, solve_s = mccnn_v3_eval.solve(pair.im0, pair.im1,
+                                            vols["trained"], pair.ndisp,
+                                            "cuda")
+        launches = {k: fn.launches for k, fn in fns.items()}
+    finite = all(np.isfinite([r[k] for r in rows for k in (
+        "train_hinge", "train_acc", "val_hinge", "val_acc")]))
+    row = {"phase": "train", "scene": list(TRAIN_SCENE),
+           "steps": rows[-1]["step"] + 1, "batch": tool.BATCH,
+           "scenes_s": scenes_s, "train_s": train_s,
+           "loop_ms_per_step": 1e3 * rows[-1]["seconds"] / (
+               rows[-1]["step"] + 1),
+           "step_ms": step_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "peak_gib": peak_gib, "rows": rows,
+           "wta_bad1_nonocc": wta_bad1,
+           "solve_bad1_nonocc": bad1(disp), "solve_s": solve_s,
+           "solve_finite": bool(np.isfinite(disp).all()),
+           "launches": launches, "nvidia_smi": smi_line()}
+    row["ok"] = (finite and rows[-1]["val_hinge"] < rows[0]["val_hinge"]
+                 and wta_bad1["trained"] < wta_bad1["initial"]
+                 and row["solve_finite"]
+                 and launches["expansion_accept"] > 0)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"the train phase failed: {row}")
+    return row
+
+
 PHASES = ("kernel", "mincut_kernel", "oracle", "unary_kernel", "small",
-          "slice", "cli", "fuse", "dual", "v2", "mccnn", "mccnn_v3",
+          "slice", "cli", "fuse", "dual", "v2", "mccnn", "mccnn_v3", "train",
           "stream", "cli_mccnn", "batch", "bf_interp", "profile", "sharded")
 
 
@@ -2368,6 +2527,7 @@ def main(argv) -> int:
         v2_row = timed("v2", phase_v2)
         timed("mccnn", phase_mccnn)
         v3_row = timed("mccnn_v3", phase_mccnn_v3)
+        train_row = timed("train", phase_train)
         stream_row = timed("stream", phase_stream)
         mccnn_cli_row = timed("cli_mccnn", phase_cli_mccnn)
         batch_row = timed("batch", phase_batch)
@@ -2412,6 +2572,7 @@ def main(argv) -> int:
          "launches_sharded_by_run": sharded_row["launches"],
          "launches_oracle": oracle_row["launches"]["expansion_accept"],
          "launches_mccnn_v3": v3_row["launches"]["expansion_accept"],
+         "launches_train": train_row["launches"]["expansion_accept"],
          **kernel_entry([r for r in rows if r["path"] == "v3"]),
          "v2": kernel_entry([r for r in rows if r["path"] == "v2"])},
         {"name": "sample_windows", "route": "cuda",
@@ -2424,6 +2585,7 @@ def main(argv) -> int:
          "launches_batch": batch_row["launches"]["sample_windows"],
          "launches_bf_interp": bf_rows[0]["launches"]["sample_windows"],
          "launches_sharded": sharded_row["sample_windows_launches"],
+         "launches_train": train_row["launches"]["sample_windows"],
          **kernel_entry(gf),
          "max_abs_err": max(r["max_abs_err"] for r in urows)},
         {"name": "mincut_accept", "route": "cuda",
@@ -2432,6 +2594,7 @@ def main(argv) -> int:
          "launches": fuse_row["launches"]["mincut_accept"],
          "launches_oracle": oracle_row["launches"]["mincut_accept"],
          "launches_mccnn_v3": v3_row["launches"]["mincut_accept"],
+         "launches_train": train_row["launches"]["mincut_accept"],
          **kernel_entry(mrows)}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,17 @@
 """Counter-based random numbers, bit-exact with ``jax.random``'s threefry2x32.
 
 The JAX package draws every proposal and every initial label from stateless
-``jax.random`` keys. This module reproduces the four calls it makes —
-``PRNGKey``, ``split``, ``fold_in`` and ``uniform`` — for the default
-``jax_threefry_partitionable=True`` scheme, so the port's inits and
-proposals equal the reference's bit for bit under the same seed.
+``jax.random`` keys. This module reproduces the calls it makes —
+``PRNGKey``, ``split``, ``fold_in`` and ``uniform``, and the MC-CNN
+trainer's ``randint``, ``bernoulli`` and ``normal`` — for the default
+``jax_threefry_partitionable=True`` scheme, so the port's inits, proposals
+and training batches equal the reference's bit for bit under the same seed
+(``normal`` to within rounding: its ``erf_inv`` is XLA's polynomial).
 
 A key is an int64 tensor of shape ``[2]`` holding two uint32 words. The
 uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` after every add and
 shift (torch has no uint32 arithmetic). Keys stay on the CPU, like the host
-loop that consumes them; :func:`uniform` moves its result to ``device``.
+loop that consumes them; a draw moves to ``device`` only at the end.
 There is no global RNG state anywhere in the port.
 """
 from __future__ import annotations
@@ -95,4 +97,82 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: Scalar = 0.0,
     # a double rounding, which the tests have not met).
     scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
     out = torch.maximum(lo, scaled)
+    return out if device is None else out.to(device)
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a * b`` modulo 2**32 for uint32 values, without leaving int64."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int, device=None) -> torch.Tensor:
+    """int32 draws in [minval, maxval), bit-exact with
+    ``jax.random.randint`` (``_randint``) for int32 bounds: 64 random bits
+    from the two halves of a split, reduced modulo the span with the
+    multiplier ``(2**16 % span)**2 % span``, every product and sum
+    wrapping as uint32. A span of ``maxval <= minval`` is 1, so ``minval``
+    comes back."""
+    lo, hi = int(minval), int(maxval)
+    if not _I32_MIN <= min(lo, hi) <= max(lo, hi) <= _I32_MAX:
+        raise ValueError(f"randint: bounds {lo}, {hi} are not int32")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = 1 if hi <= lo else hi - lo
+    mult = ((2 ** 16 % span) ** 2 & _M) % span
+    offset = ((_mul32(higher % span, mult) + lower % span) & _M) % span
+    out = (lo + offset).to(torch.int32)            # in [lo, hi)
+    return out if device is None else out.to(device)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape: Sequence[int],
+              device=None) -> torch.Tensor:
+    """Boolean draws, ``uniform(key, shape) < p`` in float32 (the default
+    mode of ``jax.random.bernoulli``)."""
+    out = uniform(key, shape) < torch.tensor(p, dtype=torch.float32)
+    return out if device is None else out.to(device)
+
+
+#: XLA's float32 ``erf_inv`` (M. Giles, "Approximating the erfinv
+#: function"): Horner coefficients for w < 5 and w >= 5.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA computes it on the CPU: the
+    Giles polynomial in ``w = -log1p(-x^2)``, each Horner step one fused
+    multiply-add (a float64 product and sum, rounded once), +-inf at +-1.
+    ``torch.erfinv`` is more accurate, and so parts from XLA's by more;
+    this parts by an ulp where torch's ``log1p`` rounds otherwise."""
+    w = -torch.log1p(-(x * x))
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coeff(i):
+        return torch.where(small, _ERFINV_SMALL[i], _ERFINV_LARGE[i]).to(
+            torch.float32).double()
+
+    p = coeff(0).float()
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = (coeff(i) + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int],
+           device=None) -> torch.Tensor:
+    """float32 standard normal draws as ``jax.random.normal``:
+    ``sqrt(2) * erf_inv(u)`` with u uniform in (-1, 1)."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    out = torch.tensor(math.sqrt(2), dtype=torch.float32) * erfinv(u)
     return out if device is None else out.to(device)

@@ -11,7 +11,11 @@ the same solve on the CPU::
 2. ``shared``: from one init state (the CPU's, copied to the card), one
    greedy sweep on each device, every proposal, unary and accept mask of
    its color steps recorded: the first steps that differ and by how much,
-   the labelings' and energies' gap after the sweep.
+   the labelings' and energies' gap after the sweep. Then the random draws
+   alone on the same inputs (``same_inputs``): the init's random labels
+   drawn on the card against the CPU's, and each of the CPU sweep's random
+   perturbation calls run again on the card with the CPU's inputs, each
+   with its largest gap (0.0 when the two devices round alike).
 
 Prints the card's name and power limit first. Exits 2 without a card.
 """
@@ -84,16 +88,21 @@ def shared(h: int = 48, w: int = 72, nd: int = 16, steps: int = 6):
     state = engine.init_step(cpu.data, cpu.cfg,
                              rng.fold_in(rng.PRNGKey(0), 1000),
                              unit_size=LAYERS[0], mode=0)
+    init_labeling = state[0].clone()        # the sweep writes the state
     states = {"cpu": state, "cuda": tuple(x.cuda() for x in state)}
     trace = {"cpu": [], "cuda": []}
     saved = {name: getattr(proposals, name)
              for name in ("expansion", "ransac", "random_perturbation")}
     saved_unary, saved_greedy = energy.unary_windows, mincut.greedy_accept
 
+    perturbations = []      # the CPU's calls: (args, kwargs, output)
+
     def recorded(name, fn):
         def wrapper(*args, **kwargs):
             out = fn(*args, **kwargs)
             trace[out.device.type].append((name, out.to("cpu", copy=True)))
+            if name == "random_perturbation" and out.device.type == "cpu":
+                perturbations.append((args, kwargs, out))
             return out
         return wrapper
 
@@ -122,9 +131,29 @@ def shared(h: int = 48, w: int = 72, nd: int = 16, steps: int = 6):
                                              0)[0])
                 for d, s in solvers.items()}
     lab_gap = float((states["cuda"][0].cpu() - states["cpu"][0]).abs().max())
+
+    def on_card(x):
+        return x.cuda() if torch.is_tensor(x) else x
+
+    card = solvers["cuda"]
+    init_gap = float((engine.init_step(
+        card.data, card.cfg, rng.fold_in(rng.PRNGKey(0), 1000),
+        unit_size=LAYERS[0], mode=0)[0].cpu() - init_labeling).abs().max())
+    perturb_gaps = [
+        float((saved["random_perturbation"](
+            args[0], *map(on_card, args[1:]),
+            **{k: on_card(v) for k, v in kwargs.items()}).cpu()
+            - out).abs().max())
+        for args, kwargs, out in perturbations]
     print(json.dumps({"part": "shared", "shape": [h, w, nd],
                       "steps": len(trace["cpu"]), "first_differing": differ,
-                      "labeling_max_gap": lab_gap, "energies": energies}),
+                      "labeling_max_gap": lab_gap, "energies": energies,
+                      "same_inputs": {
+                          "init_labeling_max_gap": init_gap,
+                          "random_perturbation_calls": len(perturb_gaps),
+                          "random_perturbation_max_gap": max(perturb_gaps),
+                          "random_perturbation_differing": sum(
+                              g > 0 for g in perturb_gaps)}}),
           flush=True)
 
 

@@ -618,3 +618,76 @@ def _refit_exact(feats, w, d):
         out.append((terms.sum(1), (terms.shape[1] + 1) * 2.0 ** -24
                     * np.abs(terms).sum(1)))
     return out
+
+
+#: The MC-CNN trainer on the card against the CPU. One step: the loss within
+#: TRAIN_LOSS_RTOL, each gradient tensor within TRAIN_GRAD_RTOL of its
+#: largest entry (tests/test_torch_train_mccnn.py's tolerances against JAX;
+#: the card's index backward adds with atomics, so in no fixed order). A
+#: 20-step run: each step's loss within TRAIN_RUN_RTOL and accuracy within
+#: TRAIN_RUN_ACC (Adam carries the rounding on: the CPU run parts from the
+#: JAX tool's by 5e-5 in the loss over 20 steps, accuracies equal).
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-6, 1e-5
+TRAIN_RUN_RTOL, TRAIN_RUN_ACC = 1e-3, 2e-3
+
+
+def _train_scenes(dev, n=3):
+    out = []
+    for seed in range(n):
+        im_l, im_r, disp, nonocc = synthetic.v2_scene(96, 128, 16, seed)
+        gt = (np.clip(np.rint(disp * 4.0), 1, 255) / 4.0).astype(np.float32)
+        gt[~nonocc] = np.inf
+        out.append(tuple(torch.as_tensor(a, device=dev) for a in (
+            im_l.astype(np.float32), im_r.astype(np.float32), gt,
+            np.isfinite(gt))))
+    return out
+
+
+def _train_net(dev):
+    from localexpstereo_tpu_torch.models import mccnn
+    from localexpstereo_tpu_torch.ops import rng
+    params = mccnn.init_params_from_key(rng.PRNGKey(0))
+    return mccnn.params_from_jax(params).to(dev).requires_grad_(True)
+
+
+@pytest.mark.cuda
+def test_hinge_loss_step_on_card_matches_cpu(cuda):
+    from localexpstereo_tpu_torch.ops import rng
+    from localexpstereo_tpu_torch.tools import train_mccnn as tool
+    key = rng.split(rng.PRNGKey(0))[1]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        net = _train_net(dev)
+        loss, acc = tool.hinge_loss(net, *_train_scenes(dev, 1)[0], key)
+        loss.backward()
+        out[dev.type] = (float(loss.detach()), float(acc),
+                         [p.grad.cpu() for p in net.parameters()])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=TRAIN_LOSS_RTOL)
+    assert out["cuda"][1] == out["cpu"][1]
+    for g, want in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((g - want).abs().max()) <= (
+            TRAIN_GRAD_RTOL * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_training_run_on_card_matches_cpu(cuda):
+    """20 steps of the tool's loop (its keys, Adam, the scenes in turn)."""
+    from localexpstereo_tpu_torch.ops import rng
+    from localexpstereo_tpu_torch.tools import train_mccnn as tool
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        scenes = _train_scenes(dev)
+        net = _train_net(dev)
+        opt = tool.adam(net)
+        key = rng.PRNGKey(0)
+        rows = []
+        for it in range(20):
+            key, k = rng.split(key)
+            loss, acc = tool.train_step(net, opt, scenes[it % 3], k)
+            rows.append((float(loss), float(acc)))
+        runs[dev.type] = np.array(rows)
+    got, want = runs["cuda"], runs["cpu"]
+    assert np.isfinite(got).all() and got[-1, 0] < got[0, 0]
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=TRAIN_RUN_RTOL)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0,
+                               atol=TRAIN_RUN_ACC)

@@ -238,7 +238,8 @@ def test_port_runs_without_jax(tmp_path):
                                                        replica, spatial,
                                                        volume)
         from localexpstereo_tpu_torch.tools import (gc_cap_audit,
-                                                    mccnn_v3_eval, multichip)
+                                                    mccnn_v3_eval, multichip,
+                                                    train_mccnn)
         from localexpstereo_tpu_torch.utils import synthetic
         img, vol, h, w, nd, truth = synthetic.build_problem(0.03)
         s = engine.LocalExpansionSolver(

@@ -58,3 +58,73 @@ def test_uniform_cos_minval():
                       torch.cos(torch.tensor(np.pi / 3, dtype=torch.float32)),
                       1.0).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+#: The MC-CNN trainer's draws: its batch (4096 pixels), a small shape, and
+#: spans of 1, 7, the negatives' 7 (4..10), 48, 64, 375 and 450 (the
+#: scenes' heights and widths); minval > 0; maxval <= minval (span 1); and
+#: the int32 extremes, where the multiplier's square wraps.
+RANDINT_RANGES = [(0, 1), (0, 7), (4, 11), (0, 48), (0, 64), (0, 375),
+                  (0, 450), (3, 51), (5, 5), (9, 2), (-3, 100),
+                  (-2 ** 31, 2 ** 31 - 1), (0, 2 ** 31 - 1)]
+KEYS = [(0, 0), (1, 5), (12345, 999)]
+
+
+def _keys(seed, data):
+    return (jax.random.fold_in(jax.random.PRNGKey(seed), data),
+            rng.fold_in(rng.PRNGKey(seed), data))
+
+
+@pytest.mark.parametrize("seed,data", KEYS)
+@pytest.mark.parametrize("shape", [(4096,), (7, 3)])
+def test_randint_bits(seed, data, shape):
+    kj, kt = _keys(seed, data)
+    for lo, hi in RANDINT_RANGES:
+        want = np.asarray(jax.random.randint(kj, shape, lo, hi))
+        got = rng.randint(kt, shape, lo, hi)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"{lo, hi}")
+
+
+@pytest.mark.parametrize("seed,data", KEYS)
+@pytest.mark.parametrize("shape", [(4096,), (7, 3)])
+def test_bernoulli_bits(seed, data, shape):
+    kj, kt = _keys(seed, data)
+    for p in (0.5, 0.1, 0.0, 1.0):
+        want = np.asarray(jax.random.bernoulli(kj, p, shape))
+        got = rng.bernoulli(kt, p, shape)
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+#: jax.random.normal is sqrt(2) * erf_inv(u): the port evaluates XLA's
+#: erf_inv polynomial with fused multiply-adds, but torch's float32 log1p
+#: rounds otherwise than XLA's, so about 1 % of the draws part by an ulp
+#: (measured: at most 2.4e-7 relative over 100,000 draws).
+NORMAL_RTOL = 5e-7
+
+
+@pytest.mark.parametrize("seed,data", KEYS)
+@pytest.mark.parametrize("shape", [(20000,), (3, 3, 3, 32)])
+def test_normal_close(seed, data, shape):
+    kj, kt = _keys(seed, data)
+    want = np.asarray(jax.random.normal(kj, shape))
+    got = rng.normal(kt, shape)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=NORMAL_RTOL, atol=0)
+    assert (got.numpy() == want).mean() > 0.95
+
+
+def test_erfinv_edges():
+    """erf_inv's ends (+-1 -> +-inf), zero, and the branch at w = 5."""
+    x = np.float32([-1.0, 1.0, 0.0, -0.5, 0.9966, 0.9967,
+                    np.nextafter(np.float32(-1), np.float32(0))])
+    want = np.asarray(jax.lax.erf_inv(jnp.asarray(x)))
+    got = rng.erfinv(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=NORMAL_RTOL, atol=0)
+    assert np.isinf(got[:2]).all() and (np.sign(got[:2]) == [-1, 1]).all()
+
+
+def test_randint_refuses_bounds_beyond_int32():
+    with pytest.raises(ValueError, match="int32"):
+        rng.randint(rng.PRNGKey(0), (3,), 0, 2 ** 31)
