@@ -58,14 +58,13 @@ def load(data: str, name: str, device="cuda"):
                  for a in (pair.im0, pair.im1, gt, valid))
 
 
-def hinge_loss(net, im0, im1, gt, valid, key, batch: int = BATCH):
-    """(mean hinge, matching accuracy) over ``batch`` random pixels: the
-    JAX tool's draws from ``key`` (the pixel rows from ``kp``, the columns
-    from ``fold_in(kp, 1)``, the negative's offset from ``kn`` and its side
-    from ``ks``), both means over the pixels whose positive and negative
-    columns are in the image and whose disparity is known. The loss is
-    differentiable in ``net``'s weights through both images' features."""
-    f0, f1 = net(im0), net(im1)
+def sample_batch(gt, valid, key, batch: int = BATCH):
+    """The JAX tool's draws from ``key`` on a scene's ground truth: the
+    pixel rows from ``kp``, the columns from ``fold_in(kp, 1)``, the
+    negative's offset from ``kn`` and its side from ``ks``. Returns (ys, xs,
+    xpos, xneg, ok): the pixels, their positive and negative columns in the
+    right image (clipped), and whether a pixel counts (its disparity known,
+    both columns in the image)."""
     h, w = gt.shape
     dev = gt.device
     kp, kn, ks = rng.split(key, 3)
@@ -80,9 +79,17 @@ def hinge_loss(net, im0, im1, gt, valid, key, batch: int = BATCH):
     sign = torch.where(rng.bernoulli(ks, 0.5, (batch,), device=dev), 1, -1)
     xneg = xs - d + off * sign
     ok &= (xneg >= 0) & (xneg < w)
-    xpos = torch.clamp(xs - d, 0, w - 1)
-    xneg = torch.clamp(xneg, 0, w - 1)
+    return (ys, xs, torch.clamp(xs - d, 0, w - 1),
+            torch.clamp(xneg, 0, w - 1), ok)
 
+
+def hinge_loss(net, im0, im1, gt, valid, key, batch: int = BATCH):
+    """(mean hinge, matching accuracy) over the ``batch`` pixels that
+    :func:`sample_batch` draws from ``key``, both means over the pixels
+    that count. The loss is differentiable in ``net``'s weights through
+    both images' features."""
+    f0, f1 = net(im0), net(im1)
+    ys, xs, xpos, xneg, ok = sample_batch(gt, valid, key, batch)
     fp = f0[ys, xs]
     s_pos = torch.sum(fp * f1[ys, xpos], -1)
     s_neg = torch.sum(fp * f1[ys, xneg], -1)
