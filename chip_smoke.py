@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments::
 Phases, each printing JSON lines:
 
 1. env:     torch / CUDA / nvcc versions and the card's name and power limit;
-2. build:   compiles the three hand-written kernel libraries from the
+2. build:   compiles the four hand-written kernel libraries from the
             checkout's sources (one ``nvcc`` each, started together, into
             ``build/torch_kernels/``), timed;
 3. kernel:  ``expansion_accept`` (CUDA) against its plain PyTorch version on
@@ -39,7 +39,9 @@ Phases, each printing JSON lines:
             solve's raw labelings equal to the CPU's (one CPU solve serves
             both routes: on the CPU they are the same arithmetic); then a
             small V2 (image-warp) solve the same way, 96 x 144: both views,
-            and one view with ``max_vdisp`` > 0; and a 3-frame
+            and one view with ``max_vdisp`` > 0, and at 48 x 72 (one view)
+            and 64 x 96 (both views), every sweep within the trajectory
+            tolerance (the largest gap printed); and a 3-frame
             ``StereoStream`` (96 x 144 x 24, a pan of 2 px a frame, 1 + 1
             cold, 1 warm), each frame's energy within the trajectory
             tolerance of the CPU stream's, and a pipelined card stream's
@@ -121,7 +123,7 @@ Phases, each printing JSON lines:
             (windR 6) on the dma route, and interp 0 and 2 on auto; each
             energy (NaN unaries, which interp 2's degenerate taps leave,
             counted as 0) after the init within 1e-4 relative and after
-            the last sweep within the trajectory tolerance, the same NaN
+            every sweep within the trajectory tolerance, the same NaN
             pixels; every sweep's relative difference printed.
             Then one bilateral call at (N, F, R) = (468, 62, 20) and the
             method sampler at the main path's layer-0 windows, timed,
@@ -138,7 +140,7 @@ Phases, each printing JSON lines:
             gloo: ``expansion_accept`` on a row slice under ``plan_n`` at
             S = 129 and 387 (equal to the whole call's rows and to the
             plain version); the 1436 x 992 x 145 problem disparity- then
-            height-sharded at 2 + 5 on "auto" against the single-device
+            height-sharded at 1 + 1 on "auto" against the single-device
             solve in this process (each sweep's energy, the largest label
             difference, bitwise equality (required of the height-sharded
             solve; the disparity-sharded one within the JAX tolerance),
@@ -187,15 +189,30 @@ Phases, each printing JSON lines:
             every loss is finite, the held-out hinge fell, the trained WTA
             beats the initial one, the solve's bad1.0 is within
             TRAIN_SOLVE_BAD1, it launched ``expansion_accept`` and the
-            kernel agreed at every shape.
+            kernel agreed at every shape;
+22. proposals: the proposals on the card against the CPU, bit for bit:
+            ``ops/xla_math`` (sin / cos, sqrt, rsqrt, norm3, the fused
+            multiply-add and the 3 x 3 dot) on 1,000,000 draws each, the
+            init's random labels on the 1436 x 992 problem's grid of
+            14-pixel cells, and ``refit_sums`` (CUDA) against its plain
+            version at RANSAC's cells of the main path, (s, N) = (14, 468),
+            (43, 54), (129, 6): bitwise, one launch a call, median
+            milliseconds of the kernel, the plain version and one
+            ``torch.einsum`` of the same sums, the bound and the floor of
+            the sums' dependent chain; then ``tools/v2_drift.py``'s shared
+            greedy sweep (48 x 72 V2, one state on both devices): no
+            differing step among its proposals, unaries and masks, and the
+            same random labels and perturbations from the same inputs.
 
 A full run takes the phases in this order but runs ``oracle`` after
-``mincut_kernel``, ``mccnn_v3`` and ``train`` after ``mccnn``, ``sharded`` after
+``mincut_kernel``, ``proposals`` after ``unary_kernel``, ``mccnn_v3`` and
+``train`` after ``mccnn``, ``sharded`` after
 ``batch``, then ``small``, and ``bf_interp`` last: their CPU solves run meanwhile in two
 worker processes that do not see the card. Then a ``{"kernels": [...]}`` line (launches from the
 ``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream``,
 ``cli_mccnn``, ``batch``, ``bf_interp``, ``sharded``, ``oracle``,
-``mccnn_v3`` and ``train`` runs' beside them), the
+``mccnn_v3`` and ``train`` runs' beside them; ``refit_sums`` with the
+``slice`` run's too), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -276,10 +293,8 @@ BATCH_SMALL = (0.5, 2)
 #: bilateral twin would take most of an hour), the relative tolerance of
 #: the card's init energy against its CPU twin's (the same labels through
 #: the whole unary), and the one timed bilateral call (N, F, R: layer 0 of
-#: the main path). The sweeps' energies are held to the trajectory
-#: tolerance (_close) after the last sweep: near-ties that rounding decides
-#: part the card's bilateral solve from the CPU's by up to 0.29 % after a
-#: greedy sweep (PERF.md §6).
+#: the main path). Every sweep's energy is held to the trajectory
+#: tolerance (_close).
 BF_SHAPE = (248, 360, 37)
 BF_SCHEDULE = (2, 1)
 BF_CASES = (("bf", "dma", 1), ("interp0", "auto", 0), ("interp2", "auto", 2))
@@ -291,16 +306,26 @@ BF_TIMED = (468, 62, 20)
 OPS_BILATERAL_TAP = 14
 #: The sharded phase: ranks sharing cuda:0 (gloo) for the disparity- and
 #: height-sharded solves of the cli problem and the batch; the solves'
-#: schedule (greedy, graph-cut sweeps: the cli phase's); the batch's scale,
+#: schedule (greedy, graph-cut sweeps; 1 + 1, cut from the cli phase's
+#: 2 + 5 to keep the smoke inside its time limit on slower hosts: every
+#: sweep still passes through the merges); the batch's scale,
 #: seeds (one pair a seed, pair b's seed b in the solver) and schedule;
 #: the at-scale slice's (height, width, disparities), ranks and init band
 #: (cell rows).
 SHARD_RANKS = 2
-SHARD_SCHEDULE = (2, 5)
+SHARD_SCHEDULE = (1, 1)
 SHARD_BATCH = (0.5, (2, 3), (1, 1))
 SCALE_SHAPE = (1988, 2880, 400)
 SCALE_RANKS = 4
 SCALE_CHUNK = 16
+#: The proposals phase: draws of each ops/xla_math function held card
+#: against CPU, and RANSAC's refit at the main path's cells: (cell size s,
+#: regions N of a color) for layers 14, 43 and 129 of the 1436 x 992
+#: problem. H100 SXM float64 operations/s outside the tensor cores
+#: (NVIDIA's data sheet).
+XLA_MATH_DRAWS = 1_000_000
+REFIT_SHAPES = ((14, 468), (43, 54), (129, 6))
+F64_OPS_S = 34e12
 #: The oracle phase: regions a window size of each kind of problem.
 ORACLE_REGIONS = {42: 6, 129: 3, 387: 2}
 #: The mccnn_v3 phase's limits, in percent: WTA bad1.0 and the solve's
@@ -346,10 +371,12 @@ def phase_env(torch):
 
 
 def phase_build():
+    from localexpstereo_tpu_torch.models import proposals
     from localexpstereo_tpu_torch.ops import cuda_build, mincut_cuda, unary_cuda
     t0 = time.perf_counter()
     built = cuda_build.build([mincut_cuda.LIBRARY, mincut_cuda.MINCUT_LIBRARY,
-                              unary_cuda.LIBRARY], verbose=True)
+                              unary_cuda.LIBRARY, proposals.REFIT_LIBRARY],
+                             verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {name: {"file": path.name, "ready_s": s,
                                "compiled": compiled}
@@ -600,13 +627,13 @@ def small_dual(torch, device, route="auto"):
             unary_cuda.sample_windows.launches)
 
 
-def small_v2(torch, device, modes, max_vdisp):
-    """The small V2 solve (V2_SMALL, 1 + 1) on ``device``: (each view's
+def small_v2(torch, device, shape, modes, max_vdisp):
+    """The small V2 solve (``shape``, 1 + 1) on ``device``: (each view's
     energies, bad rates, expansion_accept and sample_windows launches)."""
     from localexpstereo_tpu_torch.ops import mincut_cuda, unary_cuda
     from localexpstereo_tpu_torch.utils import synthetic
     solver, truth, _, _ = synthetic.v2_solver(
-        *V2_SMALL, device, sizes=SMALL_LAYERS, max_vdisp=max_vdisp)
+        *shape, device, sizes=SMALL_LAYERS, max_vdisp=max_vdisp)
     rec = Recorder(torch)
     solver.set_evaluator(rec)
     mincut_cuda.expansion_accept.launches = 0
@@ -848,41 +875,168 @@ def phase_small_dual(torch, twins):
                                  f"disagree on the {route} route")
 
 
-#: The small V2 problem (layers SMALL_LAYERS): height, width, disparities.
-#: At 48 x 72 and 64 x 96 the card's and the CPU's V2 solves drift apart by
-#: up to 1 % within two sweeps (RANSAC refits a region's own plane, a tie
-#: that rounding decides, and the card rounds the refit's sums and its
-#: sin/cos otherwise); at 96 x 144 by 0.15 % at most (tools/v2_drift.py).
-V2_SMALL = (96, 144, 24)
+#: The small V2 cases (layers SMALL_LAYERS): (height, width, disparities),
+#: views, max_vdisp. 48 x 72 and 64 x 96 are where the card's and the CPU's
+#: solves parted by up to 1 % while the card rounded RANSAC's refit sums
+#: and the random draws' sin, cos and roots otherwise (ROADMAP C8).
+V2_SMALL_CASES = (((96, 144, 24), (0, 1), 0.0), ((96, 144, 24), (0,), 1.0),
+                  ((48, 72, 16), (0,), 0.0), ((64, 96, 24), (0, 1), 0.0))
 
 
-#: (views, max_vdisp) of the small V2 cases.
-V2_SMALL_CASES = (((0, 1), 0.0), ((0,), 1.0))
+def _largest_gap(got, want) -> float:
+    """The largest relative gap between two energy rows."""
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
 
 
 def phase_small_v2(torch, twins):
     """The small V2 (image-warp) solve, 1 greedy + 1 graph-cut sweep, windR
-    20, on the card against the CPU's: both views (then the
-    post-process), and one view with max_vdisp 1. Each view's energies
-    within the trajectory tolerance; the expansion kernel launched on the
-    card; no launch of the volume kernel."""
-    for modes, max_vdisp in V2_SMALL_CASES:
-        e_gpu, b_gpu, n_gpu, u_gpu = small_v2(torch, "cuda", modes,
+    20, on the card against the CPU's, at each of V2_SMALL_CASES: both
+    views (then the post-process), one view with max_vdisp 1, and one or
+    both views at the sizes that C8 parted. Each view's energies within
+    the trajectory tolerance at every sweep (the largest relative gap
+    printed); the expansion kernel launched on the card; no launch of the
+    volume kernel."""
+    for shape, modes, max_vdisp in V2_SMALL_CASES:
+        e_gpu, b_gpu, n_gpu, u_gpu = small_v2(torch, "cuda", shape, modes,
                                               max_vdisp)
-        e_cpu, b_cpu, _, _ = twins[("v2", modes, max_vdisp)]
+        e_cpu, b_cpu, _, _ = twins[("v2", shape, modes, max_vdisp)]
         ok = all(len(e_gpu[m]) == 2 + len(modes)
                  and _close(e_gpu[m], e_cpu[m]) for m in modes)
         ok &= n_gpu > 0 and u_gpu == 0
         emit({"phase": "small", "energy": "naive", "windR": 20,
               "view_modes": list(modes), "max_vdisp": max_vdisp,
-              "shape": list(V2_SMALL), "layers": SMALL_LAYERS,
+              "shape": list(shape), "layers": SMALL_LAYERS,
               "energies_cuda": e_gpu, "energies_cpu": e_cpu,
+              "largest_gap": max(_largest_gap(e_gpu[m], e_cpu[m])
+                                 for m in modes),
               "bad_cuda": b_gpu, "bad_cpu": b_cpu,
               "expansion_accept_launches_cuda": n_gpu,
               "sample_windows_launches_cuda": u_gpu, "agree": ok})
         if not ok:
-            raise AssertionError(f"CUDA and CPU V2 solves disagree: views "
-                                 f"{modes}, max_vdisp {max_vdisp}")
+            raise AssertionError(f"CUDA and CPU V2 solves disagree: {shape}, "
+                                 f"views {modes}, max_vdisp {max_vdisp}")
+
+
+def refit_inputs(torch, s: int, n: int):
+    """RANSAC's refit inputs for ``n`` cells of ``s`` x ``s`` pixels on the
+    card: (x, y, 1) cell-local features, 0/1 inlier weights (60 % set)
+    and disparities, from a seed."""
+    r = np.random.default_rng(s)
+    iy, ix = np.mgrid[0:s, 0:s].astype(np.float32)
+    feats = np.stack([ix.ravel(), iy.ravel(), np.ones(s * s, np.float32)],
+                     -1)[None].repeat(n, 0)
+    w = (r.random((n, s * s)) < 0.6).astype(np.float32)
+    d = r.uniform(0, 144, (n, s * s)).astype(np.float32)
+    return [torch.as_tensor(a, device="cuda") for a in (feats, w, d)]
+
+
+def phase_proposals(torch):
+    """The proposals on the card against the CPU, bit for bit: ops/xla_math
+    on XLA_MATH_DRAWS draws a function; the init's random labels on the
+    main path's layer-0 cell grid; the refit kernel against its plain
+    version at REFIT_SHAPES (timed beside the plain version, one
+    torch.einsum of the same sums and the bound); then
+    tools/v2_drift.py's shared sweep, which must find no differing step
+    and the same random labels and perturbations from the same inputs."""
+    from localexpstereo_tpu_torch.models import proposals
+    from localexpstereo_tpu_torch.ops import plane, rng, xla_math
+    from localexpstereo_tpu_torch.tools import v2_drift
+    r = np.random.default_rng(0)
+    n = XLA_MATH_DRAWS
+
+    def f32(*a):
+        return torch.as_tensor(r.uniform(*a).astype(np.float32))
+
+    equal = {}
+    for name, fn, args in (
+            ("sincosf", xla_math.sincosf, (f32(0, 2 * np.pi, n),)),
+            ("sqrt", xla_math.sqrt, (f32(0, 1, n),)),
+            ("rsqrt", xla_math.rsqrt, (f32(1, 20, n),)),
+            ("norm3", xla_math.norm3, (f32(-2, 2, (n, 3)),)),
+            ("fma", xla_math.fma, (f32(-3, 3, n), f32(-3, 3, n),
+                                   f32(-3, 3, n))),
+            ("matvec3", xla_math.matvec3, (f32(-100, 100, (n, 3, 3)),
+                                           f32(-9, 9, (n, 3))))):
+        outs = [fn(*(a.to(dev) for a in args)) for dev in ("cpu", "cuda")]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        equal[name] = min(float((c == g.cpu()).double().mean())
+                          for c, g in zip(*outs))
+    # The init's labels (engine.init_step's draw) on the 1436 x 992 grid of
+    # 14-pixel cells.
+    s0, (h, w) = 14, (992, 1436)
+    wb, hb = -(-w // s0), -(-h // s0)
+    ox = torch.arange(wb).repeat(hb) * s0
+    oy = torch.arange(hb).repeat_interleave(wb) * s0
+    cw, ch = torch.clamp(w - ox, 1, s0), torch.clamp(h - oy, 1, s0)
+    kp, kl = rng.split(rng.fold_in(rng.PRNGKey(0), 1000))
+    labels = {}
+    for dev in ("cpu", "cuda"):
+        xx, yy = proposals._cell_pixel(kp, *(t.to(dev) for t in (ox, oy, cw,
+                                                                 ch)))
+        labels[dev] = plane.random_label(
+            kl, (ox.to(dev) + xx).float(), (oy.to(dev) + yy).float(), 0.0,
+            144.0).cpu()
+    init_equal = bool(torch.equal(labels["cpu"], labels["cuda"]))
+    refit_rows = []
+    for s, cells in REFIT_SHAPES:
+        args = refit_inputs(torch, s, cells)
+        before = proposals.refit_sums.launches
+        got = proposals.refit_sums(*args)
+        torch.cuda.synchronize()
+        launched = proposals.refit_sums.launches - before
+        want = proposals.refit_sums_reference(*args)
+        bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+        fw = args[0] * args[1][..., None]
+        rhs = torch.cat([args[0], (args[2] * args[1])[..., None]], -1)
+        p = s * s
+        nbytes = sum(a.numel() * a.element_size() for a in args) + cells * 48
+        bound_ms, bound_by = bound(nbytes, 0.0)
+        ops_ms = cells * 12 * p * 2 / F64_OPS_S * 1e3
+        if ops_ms > bound_ms:
+            bound_ms, bound_by = ops_ms, "operations"
+        row = {"phase": "proposals", "part": "refit_sums", "S": s, "N": cells,
+               "P": p, "bitwise": bitwise, "launches": launched,
+               "max_abs_err": max(float((a - b).abs().max())
+                                  for a, b in zip(got, want)),
+               "ms": time_ms(torch, lambda: proposals.refit_sums(*args), 20),
+               "plain_ms": time_ms(
+                   torch, lambda: proposals.refit_sums_reference(*args), 2),
+               "library_ms": time_ms(torch, lambda: torch.einsum(
+                   "npi,npj->nij", fw, rhs), 20),
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+               # P dependent steps a thread, each a float64 add and two
+               # conversions of at least a cycle at the card's top clock.
+               "chain_floor_ms": 3 * p / sm_max_clock_hz() * 1e3}
+        emit(row)
+        refit_rows.append(row)
+    drift = v2_drift.shared()
+    same = drift["same_inputs"]
+    row = {"phase": "proposals", "xla_math_draws": n,
+           "xla_math_equal_share": equal, "init_labels_cells": wb * hb,
+           "init_labels_equal": init_equal,
+           "refit_bitwise": [r["bitwise"] for r in refit_rows],
+           "v2_drift_shared": drift, "nvidia_smi": smi_line()}
+    row["ok"] = (min(equal.values()) == 1.0 and init_equal
+                 and all(r["bitwise"] and r["launches"] == 1
+                         for r in refit_rows)
+                 and not drift["first_differing"]
+                 and drift["labeling_max_gap"] == 0.0
+                 and same["init_labeling_max_gap"] == 0.0
+                 and same["random_perturbation_differing"] == 0)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"the card's proposals differ from the CPU's: "
+                             f"{row}")
+    return refit_rows
+
+
+def sm_max_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def phase_unary_kernel(torch):
@@ -985,7 +1139,6 @@ def timed_layers(torch, engine, layer_times):
 
 def run_slice(torch, pm_iterations: int, iterations: int):
     from localexpstereo_tpu_torch.models import engine
-    from localexpstereo_tpu_torch.ops import mincut_cuda
     from localexpstereo_tpu_torch.utils import synthetic
     solver, truth, sizes = synthetic.bench_solver(1.0, "cuda")
     t0 = time.perf_counter()
@@ -997,7 +1150,7 @@ def run_slice(torch, pm_iterations: int, iterations: int):
     layer_times = []
     inner, wrapped = timed_layers(torch, engine, layer_times)
     engine.layer_sweep = wrapped
-    mincut_cuda.expansion_accept.launches = 0
+    fns = reset_launches()
     t_run = time.perf_counter()
     try:
         solver.run(iterations=iterations, pm_iterations=pm_iterations)
@@ -1005,7 +1158,7 @@ def run_slice(torch, pm_iterations: int, iterations: int):
     finally:
         engine.layer_sweep = inner
     run_s = time.perf_counter() - t_run
-    launches = mincut_cuda.expansion_accept.launches
+    launches = fns["expansion_accept"].launches
     energies = [e for _, e, _ in rec.rows]
     sweep_s = [b[2] - a[2] for a, b in zip(rec.rows, rec.rows[1:])]
     b05, b10 = bad_rates(solver, truth)
@@ -1017,10 +1170,12 @@ def run_slice(torch, pm_iterations: int, iterations: int):
            "layer_s": [[li, "gc" if gc else "greedy", s]
                        for li, gc, s in layer_times],
            "energies": energies, "bad05": b05, "bad10": b10,
-           "expansion_accept_launches": launches}
+           "expansion_accept_launches": launches,
+           "refit_sums_launches": fns["refit_sums"].launches}
     emit(row)
-    if launches == 0:
-        raise AssertionError("the graph-cut sweeps never launched the kernel")
+    if launches == 0 or row["refit_sums_launches"] == 0:
+        raise AssertionError("the sweeps never launched a kernel: "
+                             f"{launches}, {row['refit_sums_launches']}")
     gc = energies[pm_iterations + 1:]
     if gc[0] > energies[pm_iterations] or any(
             b > a for a, b in zip(gc, gc[1:])):
@@ -1230,10 +1385,12 @@ def run_cli(argv, out, mode="MiddV3", scene=None):
 
 
 def kernel_launches():
+    from localexpstereo_tpu_torch.models import proposals
     from localexpstereo_tpu_torch.ops import mincut_cuda, unary_cuda
     return {"expansion_accept": mincut_cuda.expansion_accept,
             "mincut_accept": mincut_cuda.solve_graph,
-            "sample_windows": unary_cuda.sample_windows}
+            "sample_windows": unary_cuda.sample_windows,
+            "refit_sums": proposals.refit_sums}
 
 
 def check_disparity(disp, shape):
@@ -1251,7 +1408,7 @@ def phase_cli(torch):
     wall_s, log, time_txt, disp = run_cli(
         ["-unaryBackend", "dma", "-device", "cuda"], CLI_DIR / "out")
     launches = {k: fns[k].launches
-                for k in ("expansion_accept", "sample_windows")}
+                for k in ("expansion_accept", "sample_windows", "refit_sums")}
     row = {"phase": "cli", "argv": "-mode MiddV3 -unaryBackend dma "
                                    "-device cuda (2 + 5)",
            "scene_write_s": write_s, "wall_s": wall_s, "time_txt": time_txt,
@@ -1441,7 +1598,7 @@ def phase_dual(torch, cli_row=None):
             ["-unaryBackend", "dma", "-doDual", "1", "-device", "cuda"], out)
     raw = pfm.read_pfm(str(out / "disp0raw.pfm"))
     launches = {k: fns[k].launches
-                for k in ("expansion_accept", "sample_windows")}
+                for k in ("expansion_accept", "sample_windows", "refit_sums")}
     energies = [r[1] for r in log]
     fail_u8, post_row = post_process_row(post, disp, raw, out, 2 + 5)
     row = {"phase": "dual", "argv": "-mode MiddV3 -unaryBackend dma "
@@ -1777,7 +1934,7 @@ def phase_cli_mccnn(torch):
     finally:
         cli.load_v3_volumes = load
     launches = {k: fns[k].launches
-                for k in ("expansion_accept", "sample_windows")}
+                for k in ("expansion_accept", "sample_windows", "refit_sums")}
     row = {"phase": "cli_mccnn",
            "argv": "-mode MiddV3 -volume mccnn -unaryBackend dma -warmup 0 "
                    "-device cuda (2 + 5)",
@@ -1992,7 +2149,7 @@ def bf_twins_worker():
 def phase_bf_interp(torch, twins=None):
     """The bilateral filter and d-interpolation methods 0 and 2: three
     solves on the card against their CPU twins (computed here unless
-    given): the init's energy within BF_RTOL relative, the last sweep's
+    given): the init's energy within BF_RTOL relative, every sweep's
     within the trajectory tolerance, the same NaN pixels; then one
     bilateral call at layer 0's shape of the main path and the method
     sampler at that layer's windows, timed."""
@@ -2007,7 +2164,7 @@ def phase_bf_interp(torch, twins=None):
         ok = (len(got["energies"]) == len(want["energies"])
               == 1 + sum(BF_SCHEDULE)
               and rel[0] <= BF_RTOL
-              and _close(got["energies"][-1:], want["energies"][-1:])
+              and _close(got["energies"][1:], want["energies"][1:])
               and got["nan_pixels"] == want["nan_pixels"]
               and (got["nan_pixels"][-1] > 0) == (case[2] == 2)
               and got["launches"]["expansion_accept"] > 0
@@ -2310,6 +2467,9 @@ def phase_sharded(torch):
            "sample_windows_launches": sum(
                r[j]["launches"]["sample_windows"] for r in ranks
                for j in range(3)),
+           "refit_sums_launches": sum(
+               r[j]["launches"]["refit_sums"] for r in ranks
+               for j in range(3)),
            "nvidia_smi": smi_line()}
     emit(row)
     if min(launches.values()) == 0:
@@ -2577,7 +2737,8 @@ def phase_train(torch):
     return row
 
 
-PHASES = ("kernel", "mincut_kernel", "oracle", "unary_kernel", "small",
+PHASES = ("kernel", "mincut_kernel", "oracle", "unary_kernel", "proposals",
+          "small",
           "slice", "cli", "fuse", "dual", "v2", "mccnn", "mccnn_v3", "train",
           "stream", "cli_mccnn", "batch", "bf_interp", "profile", "sharded")
 
@@ -2620,6 +2781,7 @@ def main(argv) -> int:
         mrows = timed("mincut_kernel", phase_mincut_kernel)
         oracle_row = timed("oracle", phase_oracle)
         urows = timed("unary_kernel", phase_unary_kernel)
+        refit_rows = timed("proposals", phase_proposals)
         first = timed("slice_1_1", run_slice, pm_iterations=1, iterations=1)
         cli_row = timed("cli", phase_cli)
         fuse_row = timed("fuse", phase_fuse)
@@ -2695,7 +2857,23 @@ def main(argv) -> int:
          "launches_oracle": oracle_row["launches"]["mincut_accept"],
          "launches_mccnn_v3": v3_row["launches"]["mincut_accept"],
          "launches_train": train_row["launches"]["mincut_accept"],
-         **kernel_entry(mrows)}]})
+         **kernel_entry(mrows)},
+        {"name": "refit_sums", "route": "cuda",
+         "source": "localexpstereo_tpu_torch/csrc/refit_sums.cu",
+         "replaces": "localexpstereo_tpu/models/proposals.py:218",
+         "launches": fuse_row["launches"]["refit_sums"],
+         **{f"launches_{name}": row["launches"]["refit_sums"]
+            for name, row in (("cli", cli_row), ("dual", dual_row),
+                              ("v2", v2_row), ("stream", stream_row),
+                              ("cli_mccnn", mccnn_cli_row),
+                              ("batch", batch_row), ("mccnn_v3", v3_row),
+                              ("train", train_row))},
+         "launches_slice": first["refit_sums_launches"],
+         "launches_bf_interp": sum(r["launches"]["refit_sums"]
+                                   for r in bf_rows[:-1]),
+         "launches_sharded": sharded_row["refit_sums_launches"],
+         **kernel_entry(refit_rows),
+         "library_ms": sum(r["library_ms"] for r in refit_rows)}]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,16 +14,26 @@ stateless threefry key (:mod:`..ops.rng`), bit-exact with the JAX package.
 
 :func:`completion_labeling` makes a whole external labeling for the fusion
 move, on the host.
+
+Every float32 operation here rounds the same on the CPU and on the card
+(:mod:`..ops.xla_math`), so a solve's proposals are the same on both. The
+JAX engine runs the proposers under ``jit``, where XLA's CPU backend fuses
+elementwise code and contracts each multiply that feeds an add into one
+fused multiply-add: ``x*y + z*w`` becomes ``fma(x, y, z*w)``, and ``x*y -
+z*w`` becomes ``fma(x, y, -(z*w))``. RANSAC is written in those forms and
+equals the JAX engine's bit for bit (``tests/test_torch_proposals.py``);
+the random perturbation keeps three sums in eager JAX's form (see there).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
+from ..ops import cuda_build, rng, xla_math
 from ..ops import plane as plane_ops
-from ..ops import rng
 
 #: Hypotheses evaluated per RANSAC activation.
 RANSAC_HYPOTHESES = 32
@@ -49,6 +59,11 @@ def _label_at(cell_labels: torch.Tensor, xx, yy) -> torch.Tensor:
     return flat[torch.arange(n, device=flat.device), idx]
 
 
+def _disparity(labels: torch.Tensor, x, y) -> torch.Tensor:
+    """``plane.disparity_at`` as XLA contracts it: ``fma(a, x, b*y) + c``."""
+    return xla_math.fma(labels[..., 0], x, labels[..., 1] * y) + labels[..., 2]
+
+
 def expansion(key, cell_labels, ox, oy, cw, ch) -> torch.Tensor:
     """[N, 4] expansion proposals: a random in-cell current label."""
     xx, yy = _cell_pixel(key, ox, oy, cw, ch)
@@ -66,6 +81,9 @@ def random_perturbation(key, cell_labels, ox, oy, cw, ch, dz: float,
     base = _label_at(cell_labels, xx, yy)
     gx = (ox + xx).to(torch.float32)
     gy = (oy + yy).to(torch.float32)
+    # zs, z_new and v_new are rounded op by op, as eager JAX has them: the
+    # JAX engine's jitted code fuses their multiply-adds, which moves the
+    # port's solves off the JAX engine's in a parity test (ROADMAP C8).
     zs = plane_ops.disparity_at(base, gx, gy)
     dz = torch.tensor(dz, dtype=torch.float32, device=dev)
     nr = torch.tensor(nr, dtype=torch.float32, device=dev)
@@ -78,7 +96,7 @@ def random_perturbation(key, cell_labels, ox, oy, cw, ch, dz: float,
     jitter = plane_ops.random_unit_vector(kn, math.pi, tuple(zs.shape),
                                           device=dev) * nr
     n1 = n0 + jitter
-    n1 = n1 / torch.linalg.vector_norm(n1, dim=-1, keepdim=True)
+    n1 = n1 / xla_math.norm3(n1)[..., None]
 
     if max_vdisp != 0.0:
         dv = dz / max(max_disp - min_disp, 1e-9) * max_vdisp
@@ -106,41 +124,97 @@ def random_proposal_count(k_max: int, outer_iter: int, min_disp: float,
     return count
 
 
+#: Each adjugate entry of a 3 x 3 matrix, row-major, as ``a[i] * a[j] -
+#: a[k] * a[l]`` over its 9 flat entries (i, j, k, l), in the JAX package's
+#: order of the factors.
+_ADJUGATE = ((4, 8, 5, 7), (2, 7, 1, 8), (1, 5, 2, 4),
+             (5, 6, 3, 8), (0, 8, 2, 6), (2, 3, 0, 5),
+             (3, 7, 4, 6), (1, 6, 0, 7), (0, 4, 1, 3))
+
+
 def _solve3x3(a: torch.Tensor, atb: torch.Tensor):
-    """Batched 3x3 solve via the adjugate; returns (solution, ok_mask)."""
-    det = (a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
-           - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
-           + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]))
-    adj = torch.stack([
-        a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1],
-        a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2],
-        a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1],
-        a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2],
-        a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0],
-        a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2],
-        a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0],
-        a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1],
-        a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0],
-    ], dim=-1).reshape(*a.shape[:-2], 3, 3)
+    """Batched 3x3 solve via the adjugate; returns (solution, ok_mask). The
+    adjugate's and determinant's products and differences are contracted
+    as XLA contracts the JAX package's, and ``adj @ atb`` is XLA's dot."""
+    flat = a.flatten(-2)
+    x, y, z, w = (torch.stack([flat[..., e[k]] for e in _ADJUGATE], -1)
+                  for k in range(4))
+    adj = xla_math.fma(x, y, -(z * w))                       # [..., 9]
+    t2 = xla_math.fma(flat[..., 3], flat[..., 8],
+                      -(flat[..., 5] * flat[..., 6]))
+    det = xla_math.fma(flat[..., 2], adj[..., 6], xla_math.fma(
+        flat[..., 0], adj[..., 0], -(flat[..., 1] * t2)))
     ok = torch.abs(det) > 1e-12
     safe_det = torch.where(ok, det, 1.0)
-    sol = torch.einsum("...ij,...j->...i", adj, atb) / safe_det[..., None]
+    sol = xla_math.matvec3(adj.unflatten(-1, (3, 3)), atb) / safe_det[..., None]
     return sol, ok
 
 
-def refit_sums(feats: torch.Tensor, weight: torch.Tensor, d: torch.Tensor):
-    """Normal equations (A^T W A [N, 3, 3], A^T W d [N, 3], float32, on the
-    inputs' device) of the weighted least-squares plane fit to ``d`` [N, P]
-    at ``feats`` [N, P, 3] (cell-local x, y, 1) with 0/1 ``weight`` [N, P].
-
-    Float32 sums of P products, as the JAX package's: they round by the
-    library's order, which differs between the CPU and the card (ROADMAP
-    C8). Sums that do not depend on the order (float64, or a fixed pairwise
-    tree of float32 adds) move the port off the reference's float32 refit
-    on near-tied moves."""
+def refit_sums_reference(feats: torch.Tensor, weight: torch.Tensor,
+                         d: torch.Tensor):
+    """Plain PyTorch version of :func:`refit_sums` (same arguments and
+    result): every output a fused multiply-add chain over p = 0 .. P-1,
+    each step a float64 product (exact) and sum rounded to float32."""
+    n, p = weight.shape
     fw = feats * weight[..., None]
-    return (torch.einsum("npi,npj->nij", fw, feats),
-            torch.einsum("npi,np->ni", fw, d * weight))
+    rhs = torch.cat([feats, (d * weight)[..., None]], -1)       # [N, P, 4]
+    prod = fw.double()[..., :, None] * rhs.double()[..., None, :]
+    acc = torch.zeros((n, 3, 4), dtype=torch.float32, device=feats.device)
+    step = torch.empty((n, 3, 4), dtype=torch.float64, device=feats.device)
+    for q in range(p):
+        torch.add(prod[:, q], acc, out=step)
+        acc.copy_(step)
+    return acc[..., :3].contiguous(), acc[..., 3].contiguous()
+
+
+def _declare_refit(lib: ctypes.CDLL) -> None:
+    fn = lib.refit_sums_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+REFIT_LIBRARY = cuda_build.Library("refit_sums", ("refit_sums.cu",),
+                                   _declare_refit)
+
+
+def refit_sums(feats: torch.Tensor, weight: torch.Tensor, d: torch.Tensor):
+    """Normal equations (A^T W A [N, 3, 3], A^T W d [N, 3], float32) of the
+    weighted least-squares plane fit to ``d`` [N, P] at ``feats`` [N, P, 3]
+    (cell-local x, y, 1) with 0/1 ``weight`` [N, P].
+
+    Each output is ``acc = fma(fw[p], f[p], acc)`` for p = 0 .. P-1 in
+    order, from 0, where ``fw = feats * weight`` and ``f`` is ``feats`` or
+    ``d * weight``: how XLA's CPU dot computes the JAX package's two einsums
+    (``localexpstereo_tpu/models/proposals.py:218-219``). On a CUDA tensor
+    this launches the kernel of ``csrc/refit_sums.cu``, the same arithmetic,
+    or raises; on a CPU tensor it runs :func:`refit_sums_reference`."""
+    n, p = weight.shape
+    dev = feats.device
+    cuda_build.check("feats", feats, dev, (torch.float32,), (n, p, 3))
+    cuda_build.check("weight", weight, dev, (torch.float32,), (n, p))
+    cuda_build.check("d", d, dev, (torch.float32,), (n, p))
+    if dev.type == "cpu":
+        return refit_sums_reference(feats, weight, d)
+    if dev.type != "cuda":
+        raise ValueError(f"refit_sums: unsupported device {dev}")
+    ata = torch.empty((n, 3, 3), dtype=torch.float32, device=dev)
+    atb = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n == 0:
+        return ata, atb
+    with torch.cuda.device(dev):
+        lib = cuda_build.load(REFIT_LIBRARY)
+        rc = lib.refit_sums_launch(
+            feats.data_ptr(), weight.data_ptr(), d.data_ptr(),
+            ata.data_ptr(), atb.data_ptr(), n, p,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_build.launch_error("refit_sums", rc)
+    refit_sums.launches += 1
+    return ata, atb
+
+
+#: Number of kernel launches, counted where the kernel launches.
+refit_sums.launches = 0
 
 
 def ransac(key, cell_labels, ox, oy, cw, ch,
@@ -156,7 +230,7 @@ def ransac(key, cell_labels, ox, oy, cw, ch,
     gxg = (ox[:, None, None] + ix[None]).to(torch.float32)
     gyg = (oy[:, None, None] + iy[None]).to(torch.float32)
     in_cell = (ix[None] < cw[:, None, None]) & (iy[None] < ch[:, None, None])
-    d = plane_ops.disparity_at(cell_labels, gxg, gyg).reshape(n, -1)
+    d = _disparity(cell_labels, gxg, gyg).reshape(n, -1)
     gx = ix.to(torch.float32).reshape(1, -1).expand(n, s * s)
     gy = iy.to(torch.float32).reshape(1, -1).expand(n, s * s)
     w = in_cell.reshape(n, -1).to(torch.float32)              # [N, P]
@@ -176,9 +250,8 @@ def ransac(key, cell_labels, ox, oy, cw, ch,
     b = torch.stack([d_ for _, _, d_ in rows], -1)
     h_abc, h_ok = _solve3x3(A, b)                             # [NH, N, 3]
 
-    res = torch.abs(h_abc[..., 0][..., None] * gx[None]
-                    + h_abc[..., 1][..., None] * gy[None]
-                    + h_abc[..., 2][..., None] - d[None])     # [NH, N, P]
+    res = torch.abs(_disparity(h_abc[..., None, :], gx[None], gy[None])
+                    - d[None])                                # [NH, N, P]
     inlier = (res < threshold).to(torch.float32) * w[None]
     counts = torch.where(h_ok, inlier.sum(-1), -1.0)          # [NH, N]
     best = _first_argmax(counts)                              # [N]
@@ -193,7 +266,8 @@ def ransac(key, cell_labels, ox, oy, cw, ch,
     any_ok = h_ok[best, ar]
     abc = torch.where(any_ok[:, None], abc, 0.0)
     a, b_, c_local = abc[:, 0], abc[:, 1], abc[:, 2]
-    c = c_local - a * ox.to(torch.float32) - b_ * oy.to(torch.float32)
+    c = xla_math.fma(-b_, oy.to(torch.float32),
+                     xla_math.fma(-a, ox.to(torch.float32), c_local))
     return torch.stack([a, b_, c, torch.zeros_like(c)], dim=-1)
 
 

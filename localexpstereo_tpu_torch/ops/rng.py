@@ -21,6 +21,8 @@ from typing import Sequence, Union
 
 import torch
 
+from . import xla_math
+
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -92,10 +94,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: Scalar = 0.0,
     floats = fbits.view(torch.float32) - 1.0
     lo = torch.as_tensor(minval, dtype=torch.float32)
     hi = torch.as_tensor(maxval, dtype=torch.float32)
-    # XLA fuses the scale and shift into one fused multiply-add. The float64
-    # product is exact, so the float64 sum cast to float32 matches it (bar
-    # a double rounding, which the tests have not met).
-    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
+    # XLA fuses the scale and shift into one fused multiply-add.
+    scaled = xla_math.fma(floats, hi - lo, lo)
     out = torch.maximum(lo, scaled)
     return out if device is None else out.to(device)
 
@@ -151,21 +151,21 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
 def erfinv(x: torch.Tensor) -> torch.Tensor:
     """float32 inverse error function as XLA computes it on the CPU: the
     Giles polynomial in ``w = -log1p(-x^2)``, each Horner step one fused
-    multiply-add (a float64 product and sum, rounded once), +-inf at +-1.
-    ``torch.erfinv`` is more accurate, and so parts from XLA's by more: in
-    59 % of ``normal``'s draws, by up to 5.8e-6 relative. This parts by an
-    ulp where torch's ``log1p`` rounds otherwise."""
+    multiply-add (:func:`.xla_math.fma`), +-inf at +-1. ``torch.erfinv`` is
+    more accurate, and so parts from XLA's by more: in 59 % of ``normal``'s
+    draws, by up to 5.8e-6 relative. This parts by an ulp where torch's
+    ``log1p`` rounds otherwise."""
     w = -torch.log1p(-(x * x))
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    w = torch.where(small, w - 2.5, xla_math.sqrt(w) - 3.0)
 
     def coeff(i):
         return torch.where(small, _ERFINV_SMALL[i], _ERFINV_LARGE[i]).to(
-            torch.float32).double()
+            torch.float32)
 
-    p = coeff(0).float()
+    p = coeff(0)
     for i in range(1, len(_ERFINV_SMALL)):
-        p = (coeff(i) + p.double() * w).float()
+        p = xla_math.fma(p, w, coeff(i))
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 

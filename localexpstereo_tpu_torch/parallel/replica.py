@@ -43,6 +43,7 @@ import torch
 
 from ..config import Parameters
 from ..models import engine as engine_mod
+from ..models import proposals
 from ..ops import mincut_cuda, unary_cuda
 from ..ops import plane as plane_ops
 from .mesh import make_devices
@@ -104,7 +105,8 @@ def _sync(device: torch.device) -> None:
 def _launch_counts() -> Dict[str, int]:
     return {"expansion_accept": mincut_cuda.expansion_accept.launches,
             "mincut_accept": mincut_cuda.solve_graph.launches,
-            "sample_windows": unary_cuda.sample_windows.launches}
+            "sample_windows": unary_cuda.sample_windows.launches,
+            "refit_sums": proposals.refit_sums.launches}
 
 
 def _solve_pair(problem: _Problem, schedule: _Schedule, b: int, im0, im1,

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from ..config import PARAMS_GF
-from ..models import engine
+from ..models import engine, proposals
 from ..ops import guided, mincut_cuda, rng, unary_cuda
 from ..parallel import collectives
 from ..parallel.batch import BatchedSolver
@@ -105,13 +105,15 @@ def launch_counts():
     """This process's kernel launches so far, by kernel."""
     return {"expansion_accept": mincut_cuda.expansion_accept.launches,
             "mincut_accept": mincut_cuda.solve_graph.launches,
-            "sample_windows": unary_cuda.sample_windows.launches}
+            "sample_windows": unary_cuda.sample_windows.launches,
+            "refit_sums": proposals.refit_sums.launches}
 
 
 def zero_launch_counts() -> None:
     mincut_cuda.expansion_accept.launches = 0
     mincut_cuda.solve_graph.launches = 0
     unary_cuda.sample_windows.launches = 0
+    proposals.refit_sums.launches = 0
 
 
 def digest(*tensors) -> str:

@@ -15,7 +15,9 @@ the same solve on the CPU::
    alone on the same inputs (``same_inputs``): the init's random labels
    drawn on the card against the CPU's, and each of the CPU sweep's random
    perturbation calls run again on the card with the CPU's inputs, each
-   with its largest gap (0.0 when the two devices round alike).
+   with its largest gap (0.0 when the two devices round alike). With the
+   proposals computed as ``ops/xla_math`` and ``csrc/refit_sums.cu`` do,
+   no step differs (``chip_smoke.py``'s ``proposals`` phase requires it).
 
 Prints the card's name and power limit first. Exits 2 without a card.
 """
@@ -77,8 +79,9 @@ def sizes():
               flush=True)
 
 
-def shared(h: int = 48, w: int = 72, nd: int = 16, steps: int = 6):
-    """One greedy sweep from one shared state on each device."""
+def shared(h: int = 48, w: int = 72, nd: int = 16, steps: int = 6) -> dict:
+    """One greedy sweep from one shared state on each device; prints and
+    returns the row."""
     solvers = {}
     for device in ("cuda", "cpu"):
         solvers[device], _, _, _ = synthetic.v2_solver(h, w, nd, device,
@@ -145,16 +148,17 @@ def shared(h: int = 48, w: int = 72, nd: int = 16, steps: int = 6):
             **{k: on_card(v) for k, v in kwargs.items()}).cpu()
             - out).abs().max())
         for args, kwargs, out in perturbations]
-    print(json.dumps({"part": "shared", "shape": [h, w, nd],
-                      "steps": len(trace["cpu"]), "first_differing": differ,
-                      "labeling_max_gap": lab_gap, "energies": energies,
-                      "same_inputs": {
-                          "init_labeling_max_gap": init_gap,
-                          "random_perturbation_calls": len(perturb_gaps),
-                          "random_perturbation_max_gap": max(perturb_gaps),
-                          "random_perturbation_differing": sum(
-                              g > 0 for g in perturb_gaps)}}),
-          flush=True)
+    row = {"part": "shared", "shape": [h, w, nd],
+           "steps": len(trace["cpu"]), "first_differing": differ,
+           "labeling_max_gap": lab_gap, "energies": energies,
+           "same_inputs": {
+               "init_labeling_max_gap": init_gap,
+               "random_perturbation_calls": len(perturb_gaps),
+               "random_perturbation_max_gap": max(perturb_gaps),
+               "random_perturbation_differing": sum(
+                   g > 0 for g in perturb_gaps)}}
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def main() -> int:

@@ -270,20 +270,22 @@ def test_solve_on_card_matches_cpu(cuda, windr, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("modes,max_vdisp", [((0,), 0.0), ((0, 1), 0.0),
-                                             ((0,), 1.0)])
-def test_v2_solve_on_card_matches_cpu(cuda, modes, max_vdisp):
+@pytest.mark.parametrize("shape,modes,max_vdisp", [
+    ((96, 144, 24), (0,), 0.0), ((96, 144, 24), (0, 1), 0.0),
+    ((96, 144, 24), (0,), 1.0), ((48, 72, 16), (0,), 0.0),
+    ((64, 96, 24), (0, 1), 0.0)])
+def test_v2_solve_on_card_matches_cpu(cuda, shape, modes, max_vdisp):
     """A small V2 (image-warp) solve on the card lands on the CPU solve's
     energies, one view, both views (with the post-process) and one view
     with vertical disparity; the graph-cut sweeps launch the expansion
-    kernel, and nothing launches the volume kernel."""
+    kernel, and nothing launches the volume kernel. 48 x 72 and 64 x 96
+    are the sizes where the two parted by up to 1 % while the card rounded
+    the proposals' sums and trigonometry otherwise (ROADMAP C8)."""
     energies = {}
     launches = (mincut_cuda.expansion_accept.launches,
                 unary_cuda.sample_windows.launches)
     for device in (cuda, torch.device("cpu")):
-        # 96 x 144: smaller scenes drift apart by up to 1 % (ties that
-        # rounding decides: chip_smoke.py's V2_SMALL).
-        solver, _, _, _ = synthetic.v2_solver(96, 144, 24, device,
+        solver, _, _, _ = synthetic.v2_solver(*shape, device,
                                               sizes=[4, 8, 16],
                                               max_vdisp=max_vdisp)
         out = {m: [] for m in modes}
@@ -581,18 +583,83 @@ def test_mccnn_v3_wta_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s", [14, 43, 129])
-def test_refit_sums_on_card(cuda, s):
-    """RANSAC's refit sums at the main path's cell sizes: within the
-    float32 summation bound of the exact sums on the card and on the CPU
-    (each sums in its library's order, ROADMAP C8)."""
+@pytest.mark.parametrize("s,n", [(14, 468), (43, 54), (129, 6)])
+def test_refit_sums_on_card(cuda, s, n):
+    """RANSAC's refit sums at the main path's cell sizes and region counts:
+    the kernel equal to its plain version bit for bit (the same fused
+    multiply-add chain), both within the float32 summation bound of the
+    exact sums; one launch a call."""
     from localexpstereo_tpu_torch.models import proposals
     r = np.random.default_rng(s)
-    feats, w, d = _refit_inputs(r, 12, s)
-    for dev in (cuda, "cpu"):
-        got = proposals.refit_sums(feats.to(dev), w.to(dev), d.to(dev))
-        for g, (want, bound) in zip(got, _refit_exact(feats, w, d)):
-            assert (np.abs(g.cpu().numpy() - want) <= bound).all()
+    feats, w, d = _refit_inputs(r, n, s)
+    launches = proposals.refit_sums.launches
+    got = proposals.refit_sums(feats.to(cuda), w.to(cuda), d.to(cuda))
+    torch.cuda.synchronize()
+    assert proposals.refit_sums.launches == launches + 1
+    want = proposals.refit_sums(feats, w, d)
+    for g, p, (exact, bound) in zip(got, want, _refit_exact(feats, w, d)):
+        assert torch.equal(g.cpu(), p)
+        assert (np.abs(p.numpy() - exact) <= bound).all()
+
+
+@pytest.mark.cuda
+def test_xla_math_on_card_matches_cpu(cuda):
+    """ops/xla_math on the card equals it on the CPU bit for bit, on
+    1,000,000 draws of each function's arguments."""
+    from localexpstereo_tpu_torch.ops import xla_math
+    r = np.random.default_rng(0)
+    n = 1_000_000
+
+    def f32(*a):
+        return torch.as_tensor(r.uniform(*a).astype(np.float32))
+
+    cases = [
+        (xla_math.sincosf, (f32(0, 2 * np.pi, n),)),
+        (xla_math.sincosf, (f32(-np.pi, np.pi, n),)),
+        (xla_math.sqrt, (f32(0, 10, n),)),
+        (xla_math.rsqrt, (f32(1, 20, n),)),
+        (xla_math.norm3, (f32(-2, 2, (n, 3)),)),
+        (xla_math.fma, (f32(-3, 3, n), f32(-3, 3, n), f32(-3, 3, n))),
+        (xla_math.matvec3, (f32(-100, 100, (n, 3, 3)), f32(-9, 9, (n, 3))))]
+    for fn, args in cases:
+        on_cpu = fn(*args)
+        on_card = fn(*(a.to(cuda) for a in args))
+        for c, g in zip(*(o if isinstance(o, tuple) else (o,)
+                          for o in (on_cpu, on_card))):
+            assert torch.equal(g.cpu(), c), fn.__name__
+
+
+@pytest.mark.cuda
+def test_proposals_on_card_match_cpu(cuda):
+    """The init's random labels and the three proposers on the card equal
+    the CPU's bit for bit from the same keys and cell labels."""
+    from localexpstereo_tpu_torch.models import proposals
+    from localexpstereo_tpu_torch.ops import plane, rng
+    r = np.random.default_rng(1)
+    key = rng.fold_in(rng.PRNGKey(3), 7)
+    x = torch.as_tensor(r.uniform(0, 1400, 5000).astype(np.float32))
+    y = torch.as_tensor(r.uniform(0, 990, 5000).astype(np.float32))
+    assert torch.equal(
+        plane.random_label(key, x.to(cuda), y.to(cuda), 0.0, 144.0).cpu(),
+        plane.random_label(key, x, y, 0.0, 144.0))
+    for s, n in ((14, 468), (43, 54), (129, 6)):
+        lab = np.zeros((n, s, s, 4), np.float32)
+        lab[..., 0] = r.uniform(-0.3, 0.3, (n, 1, 1))
+        lab[..., 1] = r.uniform(-0.3, 0.3, (n, 1, 1))
+        lab[..., 2] = r.uniform(10, 130, (n, 1, 1)) + r.normal(
+            0, 0.4, (n, s, s))
+        ox = torch.arange(n) * s
+        oy = torch.arange(n) % 7 * s
+        cw = torch.full((n,), s)
+        ch = torch.clamp(torch.full((n,), s) - torch.arange(n) % 3, min=1)
+        cells = (torch.as_tensor(lab), ox, oy, cw, ch)
+        for name, extra in (("expansion", ()), ("ransac", ()),
+                            ("random_perturbation",
+                             (18.0, 0.25, 0.0, 144.0))):
+            fn = getattr(proposals, name)
+            want = fn(key, *cells, *extra)
+            got = fn(key, *(c.to(cuda) for c in cells), *extra)
+            assert torch.equal(got.cpu(), want), (name, s)
 
 
 def _refit_inputs(r, n, s):

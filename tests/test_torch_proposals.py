@@ -17,21 +17,21 @@ S = 8
 NBX, NBY = 4, 3
 
 
-def _cells(seed):
+def _cells(seed, s=S, nbx=NBX, nby=NBY):
     """Cell labels, origins and clipped cell sizes of one color grid."""
     r = np.random.default_rng(seed)
-    n = NBX * NBY
-    lab = np.zeros((n, S, S, 4), np.float32)
-    lab[..., 0] = r.uniform(-0.2, 0.2, (n, S, S))
-    lab[..., 1] = r.uniform(-0.2, 0.2, (n, S, S))
-    lab[..., 2] = r.uniform(2, 12, (n, S, S))
+    n = nbx * nby
+    lab = np.zeros((n, s, s, 4), np.float32)
+    lab[..., 0] = r.uniform(-0.2, 0.2, (n, s, s))
+    lab[..., 1] = r.uniform(-0.2, 0.2, (n, s, s))
+    lab[..., 2] = r.uniform(2, 12, (n, s, s))
     # A few cells are a clean plane, so RANSAC has inliers to find.
     lab[:4, ..., 0], lab[:4, ..., 1], lab[:4, ..., 2] = 0.05, -0.03, 6.0
-    ox = (np.arange(NBX)[None, :].repeat(NBY, 0).reshape(-1) * 4 * S + S)
-    oy = (np.arange(NBY)[:, None].repeat(NBX, 1).reshape(-1) * 4 * S)
-    width, height = 4 * S * NBX - 3, 4 * S * NBY - 5
-    cw = np.clip(width - ox, 1, S)
-    ch = np.clip(height - oy, 1, S)
+    ox = (np.arange(nbx)[None, :].repeat(nby, 0).reshape(-1) * 4 * s + s)
+    oy = (np.arange(nby)[:, None].repeat(nbx, 1).reshape(-1) * 4 * s)
+    width, height = 4 * s * nbx - 3, 4 * s * nby - 5
+    cw = np.clip(width - ox, 1, s)
+    ch = np.clip(height - oy, 1, s)
     j = [jnp.asarray(a.astype(np.int32)) for a in (ox, oy, cw, ch)]
     t = [torch.as_tensor(a.astype(np.int64)) for a in (ox, oy, cw, ch)]
     return lab, j, t
@@ -74,21 +74,43 @@ def test_ransac(seed):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # the planted planes are recovered exactly enough to be inliers
     np.testing.assert_allclose(got[:4, :2], [[0.05, -0.03]] * 4, atol=1e-4)
+    # and bit for bit as the JAX engine computes them, under jit
+    want = np.asarray(jax.jit(jprop.ransac)(kj, jnp.asarray(lab), *j))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("s,nbx,nby", [(14, 6, 4), (43, 3, 2), (129, 2, 1)])
+def test_ransac_is_the_jitted_reference(s, nbx, nby):
+    """At the main path's cell sizes (P = 196, 1849, 16641 pixels a cell)
+    the port's RANSAC equals the JAX function under jit, as the JAX engine
+    runs it: the refit's sums, the 3 x 3 solves and every contracted
+    multiply-add."""
+    lab, j, t = _cells(s, s, nbx, nby)
+    kj, kt = _keys(s)
+    want = np.asarray(jax.jit(jprop.ransac)(kj, jnp.asarray(lab), *j))
+    got = tprop.ransac(kt, torch.as_tensor(lab), *t).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_random_label_and_unit_vector():
+    """Bit for bit with the JAX functions under jit (the JAX engine's
+    form: XLA contracts 1 - z^2 and the plane's offset into fused
+    multiply-adds, and its sin, cos and sqrt are glibc's sinf, cosf and a
+    rounded root)."""
     kj = jax.random.fold_in(jax.random.PRNGKey(0), 1000)
     kt = rng.fold_in(rng.PRNGKey(0), 1000)
-    x = np.arange(50, dtype=np.float32) * 3.0
-    y = np.arange(50, dtype=np.float32)[::-1] * 2.0
-    want = np.asarray(jplane.random_label(kj, jnp.asarray(x), jnp.asarray(y),
-                                          0.0, 144.0))
+    x = np.arange(500, dtype=np.float32) * 3.0
+    y = np.arange(500, dtype=np.float32)[::-1] * 2.0
+    want = np.asarray(jax.jit(jplane.random_label, static_argnums=(3, 4))(
+        kj, jnp.asarray(x), jnp.asarray(y), 0.0, 144.0))
     got = tplane.random_label(kt, torch.as_tensor(x), torch.as_tensor(y),
                               0.0, 144.0).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    want = np.asarray(jplane.random_unit_vector(kj, np.pi, (20,)))
-    got = tplane.random_unit_vector(kt, np.pi, (20,)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got, want)
+    for angle in (np.pi, np.pi / 3):
+        want = np.asarray(jax.jit(jplane.random_unit_vector,
+                                  static_argnums=(1, 2))(kj, angle, (2000,)))
+        got = tplane.random_unit_vector(kt, angle, (2000,)).numpy()
+        np.testing.assert_array_equal(got, want)
 
 
 def test_random_proposal_count():
@@ -100,10 +122,11 @@ def test_random_proposal_count():
 
 @pytest.mark.parametrize("s", [8, 43, 129])
 def test_refit_sums_are_the_cpu_float32_sums(s):
-    """The refit's normal equations: float32 on the input's device, each
+    """The refit's normal equations equal the JAX package's float32 einsums
+    bit for bit, eagerly and under jit as RANSAC computes them (each a
+    fused multiply-add chain over the cell's pixels in order), and lie
     within the float32 error bound of a sum of rounded products in any
-    order, (P + 1) u sum |terms|, of the exact (float64) sums, as the JAX
-    package's einsums are on the same inputs."""
+    order, (P + 1) u sum |terms|, of the exact (float64) sums."""
     r = np.random.default_rng(s)
     n = 7
     iy, ix = np.mgrid[0:s, 0:s].astype(np.float32)
@@ -115,13 +138,21 @@ def test_refit_sums_are_the_cpu_float32_sums(s):
     fw = feats * w[..., None]
     jax_sums = (jnp.einsum("npi,npj->nij", fw, feats),
                 jnp.einsum("npi,np->ni", fw, d * w))
+
+    @jax.jit
+    def jitted(feats, w, d):
+        wgt = w[..., None]
+        return (jnp.einsum("npi,npj->nij", feats * wgt, feats),
+                jnp.einsum("npi,np->ni", feats * wgt, d * w))
+
     f64 = feats.astype(np.float64)
     fw64 = f64 * w[..., None]
-    for g, j, terms in zip(got, jax_sums, (
+    for g, j, jj, terms in zip(got, jax_sums, jitted(feats, w, d), (
             fw64[..., :, None] * f64[..., None, :],
             fw64 * (d.astype(np.float64) * w)[..., None])):
         assert g.dtype == torch.float32 and g.shape == j.shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(jj))
         want = terms.sum(1)
         bound = (s * s + 1) * 2.0 ** -24 * np.abs(terms).sum(1)
         assert (np.abs(g.numpy() - want) <= bound).all()
-        assert (np.abs(np.asarray(j) - want) <= bound).all()

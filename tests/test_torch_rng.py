@@ -100,7 +100,10 @@ def test_bernoulli_bits(seed, data, shape):
 #: jax.random.normal is sqrt(2) * erf_inv(u): the port evaluates XLA's
 #: erf_inv polynomial with fused multiply-adds, but torch's float32 log1p
 #: rounds otherwise than XLA's, so about 1 % of the draws part by an ulp
-#: (measured: at most 2.4e-7 relative over 100,000 draws). torch.erfinv in
+#: (measured: at most 2.4e-7 relative over 100,000 draws). Equal draws over
+#: these tests' keys and shapes and 200,000 draws a key: 656,401 of 662,592
+#: (99.066 %) with erf_inv's root by xla_math.sqrt, 656,391 (99.064 %) with
+#: torch.sqrt, whose float32 root misrounds 0.7 % of draws on the CPU. torch.erfinv in
 #: its place parts 59 % of the draws, by up to 5.8e-6 relative (five keys,
 #: 100,000 draws each and the init's shapes): beyond 1e-6.
 NORMAL_RTOL = 5e-7
@@ -109,6 +112,10 @@ NORMAL_RTOL = 5e-7
 @pytest.mark.parametrize("seed,data", KEYS)
 @pytest.mark.parametrize("shape", [(20000,), (3, 3, 3, 32)])
 def test_normal_close(seed, data, shape):
+    """Within NORMAL_RTOL of jax.random.normal, and equal on more than
+    95 % of the draws: 99.066 % over these keys and shapes with 200,000
+    draws a key added (erf_inv's root by xla_math.sqrt; 99.064 % with
+    torch.sqrt before it)."""
     kj, kt = _keys(seed, data)
     want = np.asarray(jax.random.normal(kj, shape))
     got = rng.normal(kt, shape)
