@@ -140,7 +140,7 @@ Phases, each printing JSON lines:
             gloo: ``expansion_accept`` on a row slice under ``plan_n`` at
             S = 129 and 387 (equal to the whole call's rows and to the
             plain version); the 1436 x 992 x 145 problem disparity- then
-            height-sharded at 1 + 1 on "auto" against the single-device
+            height-sharded at 2 + 5 on "auto" against the single-device
             solve in this process (each sweep's energy, the largest label
             difference, bitwise equality (required of the height-sharded
             solve; the disparity-sharded one within the JAX tolerance),
@@ -198,8 +198,9 @@ Phases, each printing JSON lines:
             version at RANSAC's cells of the main path, (s, N) = (14, 468),
             (43, 54), (129, 6): bitwise, one launch a call, median
             milliseconds of the kernel, the plain version and one
-            ``torch.einsum`` of the same sums, the bound and the floor of
-            the sums' dependent chain; then ``tools/v2_drift.py``'s shared
+            ``torch.einsum`` of the same sums, the bound, and the floor of
+            the sums' dependent chain (its probe kernel: ms and cycles a
+            step); then ``tools/v2_drift.py``'s shared
             greedy sweep (48 x 72 V2, one state on both devices): no
             differing step among its proposals, unaries and masks, and the
             same random labels and perturbations from the same inputs.
@@ -306,14 +307,12 @@ BF_TIMED = (468, 62, 20)
 OPS_BILATERAL_TAP = 14
 #: The sharded phase: ranks sharing cuda:0 (gloo) for the disparity- and
 #: height-sharded solves of the cli problem and the batch; the solves'
-#: schedule (greedy, graph-cut sweeps; 1 + 1, cut from the cli phase's
-#: 2 + 5 to keep the smoke inside its time limit on slower hosts: every
-#: sweep still passes through the merges); the batch's scale,
+#: schedule (greedy, graph-cut sweeps); the batch's scale,
 #: seeds (one pair a seed, pair b's seed b in the solver) and schedule;
 #: the at-scale slice's (height, width, disparities), ranks and init band
 #: (cell rows).
 SHARD_RANKS = 2
-SHARD_SCHEDULE = (1, 1)
+SHARD_SCHEDULE = (2, 5)
 SHARD_BATCH = (0.5, (2, 3), (1, 1))
 SCALE_SHAPE = (1988, 2880, 400)
 SCALE_RANKS = 4
@@ -935,7 +934,7 @@ def phase_proposals(torch):
     on XLA_MATH_DRAWS draws a function; the init's random labels on the
     main path's layer-0 cell grid; the refit kernel against its plain
     version at REFIT_SHAPES (timed beside the plain version, one
-    torch.einsum of the same sums and the bound); then
+    torch.einsum of the same sums, the bound and the chain's floor); then
     tools/v2_drift.py's shared sweep, which must find no differing step
     and the same random labels and perturbations from the same inputs."""
     from localexpstereo_tpu_torch.models import proposals
@@ -1003,10 +1002,11 @@ def phase_proposals(torch):
                    torch, lambda: proposals.refit_sums_reference(*args), 2),
                "library_ms": time_ms(torch, lambda: torch.einsum(
                    "npi,npj->nij", fw, rhs), 20),
-               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-               # P dependent steps a thread, each a float64 add and two
-               # conversions of at least a cycle at the card's top clock.
-               "chain_floor_ms": 3 * p / sm_max_clock_hz() * 1e3}
+               "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+        # The floor that the chain of P dependent steps sets: the chain
+        # alone, its operands in registers, one launch.
+        row["chain_floor_ms"], row["chain_cycles_per_step"] = (
+            refit_chain_floor(torch, proposals, p))
         emit(row)
         refit_rows.append(row)
     drift = v2_drift.shared()
@@ -1030,13 +1030,24 @@ def phase_proposals(torch):
     return refit_rows
 
 
-def sm_max_clock_hz() -> float:
-    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), in Hz."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    return float(out) * 1e6
+def refit_chain_floor(torch, proposals, p: int):
+    """(ms, clock cycles a step) of ``csrc/refit_sums.cu``'s chain probe:
+    P dependent refit steps with their operands in registers, 12 threads,
+    timed as one launch (CUDA events, median of 20) and by the SM's clock
+    in the kernel. Not a launch of the refit kernel."""
+    from localexpstereo_tpu_torch.ops import cuda_build
+    lib = cuda_build.load(proposals.REFIT_LIBRARY)
+    out = torch.empty(12, dtype=torch.float32, device="cuda")
+    cycles = torch.empty(1, dtype=torch.float64, device="cuda")
+
+    def run():
+        rc = lib.refit_chain_probe_launch(
+            out.data_ptr(), cycles.data_ptr(), p,
+            torch.cuda.current_stream().cuda_stream)
+        cuda_build.launch_error("refit_chain_probe", rc)
+
+    ms = time_ms(torch, run, 20)
+    return ms, float(cycles.item())
 
 
 def phase_unary_kernel(torch):
@@ -1385,12 +1396,9 @@ def run_cli(argv, out, mode="MiddV3", scene=None):
 
 
 def kernel_launches():
-    from localexpstereo_tpu_torch.models import proposals
-    from localexpstereo_tpu_torch.ops import mincut_cuda, unary_cuda
-    return {"expansion_accept": mincut_cuda.expansion_accept,
-            "mincut_accept": mincut_cuda.solve_graph,
-            "sample_windows": unary_cuda.sample_windows,
-            "refit_sums": proposals.refit_sums}
+    """The port's kernel wrappers by name, from its one registry."""
+    from localexpstereo_tpu_torch.ops import kernels
+    return kernels.wrappers()
 
 
 def check_disparity(disp, shape):
@@ -2253,6 +2261,7 @@ def sharded_jobs_rank(rank, device, jobs):
     a BatchedSolver over one pair a seed, built lazily (a rank builds its
     own pairs only)."""
     import torch
+    from localexpstereo_tpu_torch.ops import kernels
     from localexpstereo_tpu_torch.parallel.batch import BatchedSolver
     from localexpstereo_tpu_torch.tools import multichip
     from localexpstereo_tpu_torch.utils import synthetic
@@ -2272,13 +2281,13 @@ def sharded_jobs_rank(rank, device, jobs):
             bs = BatchedSolver(pairs.images(), pairs.images(), params,
                                pairs.max_disp, pairs.sizes, device=device,
                                vols0=pairs.volumes(), vols1=pairs.volumes())
-            multichip.zero_launch_counts()
+            kernels.zero_launch_counts()
             t0 = time.perf_counter()
             final, _ = bs.run(schedule[1], pm_iterations=schedule[0])
             torch.cuda.synchronize(device)
             row = {"final": final, "pairs": list(bs.pairs),
                    "solve_s": time.perf_counter() - t0,
-                   "launches": multichip.launch_counts(),
+                   "launches": kernels.launch_counts(),
                    "peak_gib": torch.cuda.max_memory_allocated(device)
                    / 2 ** 30}
         row["job"] = kind

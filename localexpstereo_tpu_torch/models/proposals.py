@@ -172,6 +172,9 @@ def _declare_refit(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    probe = lib.refit_chain_probe_launch
+    probe.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
 
 
 REFIT_LIBRARY = cuda_build.Library("refit_sums", ("refit_sums.cu",),

@@ -131,11 +131,10 @@ def sincosf(x: torch.Tensor):
     not fused here; that changes a float64 result by an ulp, which rounded
     the same in float32 on every draw measured.
 
-    Raises ValueError for |x| >= 120 or NaN when ``x`` lies on the CPU; on
-    a card, where checking would wait for it, those give NaN."""
+    Raises ValueError for |x| >= 120 or NaN, on every device (on a card the
+    check waits for ``x``; the solver calls this on the host only)."""
     top = _abstop12(x)
-    out_of_range = top >= _LIMIT
-    if x.device.type == "cpu" and bool(out_of_range.any()):
+    if bool((top >= _LIMIT).any()):
         raise ValueError("sincosf: |x| >= 120 or NaN")
     xd = x.to(torch.float64)
     n = ((xd * HPI_INV).to(torch.int32) + 0x800000) >> 24
@@ -157,15 +156,7 @@ def sincosf(x: torch.Tensor):
     tiny = top < _TINY
     sin = torch.where(tiny, x, sin)
     cos = torch.where(tiny, 1.0, cos)
-    if x.device.type != "cpu":
-        sin = torch.where(out_of_range, float("nan"), sin)
-        cos = torch.where(out_of_range, float("nan"), cos)
     return sin, cos
-
-
-def sinf(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.sin`` of float32 ``x`` (:func:`sincosf`)."""
-    return sincosf(x)[0]
 
 
 def cosf(x: torch.Tensor) -> torch.Tensor:

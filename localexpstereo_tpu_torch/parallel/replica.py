@@ -43,8 +43,7 @@ import torch
 
 from ..config import Parameters
 from ..models import engine as engine_mod
-from ..models import proposals
-from ..ops import mincut_cuda, unary_cuda
+from ..ops import kernels
 from ..ops import plane as plane_ops
 from .mesh import make_devices
 
@@ -102,18 +101,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _launch_counts() -> Dict[str, int]:
-    return {"expansion_accept": mincut_cuda.expansion_accept.launches,
-            "mincut_accept": mincut_cuda.solve_graph.launches,
-            "sample_windows": unary_cuda.sample_windows.launches,
-            "refit_sums": proposals.refit_sums.launches}
-
-
 def _solve_pair(problem: _Problem, schedule: _Schedule, b: int, im0, im1,
                 vols, device: torch.device, evaluator, group,
                 warmup: bool) -> dict:
     """Pair ``b``'s solve on ``device``, its results as numpy arrays."""
-    before = _launch_counts()
+    before = kernels.launch_counts()
     t0 = time.perf_counter()
     solver = engine_mod.LocalExpansionSolver(
         im0, im1, problem.params, problem.max_disp, vol0=vols[0],
@@ -139,7 +131,7 @@ def _solve_pair(problem: _Problem, schedule: _Schedule, b: int, im0, im1,
     _sync(device)
     solve_s = time.perf_counter() - t0
     modes = schedule.view_modes
-    after = _launch_counts()
+    after = kernels.launch_counts()
     return {
         "labelings": {m: solver._unpadded_labeling(m).cpu().numpy()
                       for m in modes},

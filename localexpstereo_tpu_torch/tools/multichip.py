@@ -50,8 +50,8 @@ import numpy as np
 import torch
 
 from ..config import PARAMS_GF
-from ..models import engine, proposals
-from ..ops import guided, mincut_cuda, rng, unary_cuda
+from ..models import engine
+from ..ops import guided, kernels, rng
 from ..parallel import collectives
 from ..parallel.batch import BatchedSolver
 from ..parallel.dvolume import ShardedDVolumeSolver
@@ -99,21 +99,6 @@ class EnergyLog:
         if mode == 0:
             self.energies.append(float(engine.energy_audit(
                 solver.data, solver.cfg, labeling_m, cost_m, mode)[0]))
-
-
-def launch_counts():
-    """This process's kernel launches so far, by kernel."""
-    return {"expansion_accept": mincut_cuda.expansion_accept.launches,
-            "mincut_accept": mincut_cuda.solve_graph.launches,
-            "sample_windows": unary_cuda.sample_windows.launches,
-            "refit_sums": proposals.refit_sums.launches}
-
-
-def zero_launch_counts() -> None:
-    mincut_cuda.expansion_accept.launches = 0
-    mincut_cuda.solve_graph.launches = 0
-    unary_cuda.sample_windows.launches = 0
-    proposals.refit_sums.launches = 0
 
 
 def digest(*tensors) -> str:
@@ -169,13 +154,13 @@ def solve(rank, device, kind: str, img, vol, max_disp: float, unit_sizes,
     _sync(dev)
     build_s = time.perf_counter() - t0
     before = dict(collectives.traffic)
-    zero_launch_counts()
+    kernels.zero_launch_counts()
     t0 = time.perf_counter()
     lab, _ = s.run(schedule[1], pm_iterations=schedule[0])
     _sync(dev)
     out = {"labels": lab, "cost": s._state[0][1], "energies": log.energies,
            "build_s": build_s, "solve_s": time.perf_counter() - t0,
-           "launches": launch_counts(),
+           "launches": kernels.launch_counts(),
            "vol_shape": list(s.data.vol.shape),
            "vol_bytes": s.data.vol.numel() * s.data.vol.element_size(),
            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
