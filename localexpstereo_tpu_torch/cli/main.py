@@ -71,7 +71,7 @@ from ..models.evaluator import Evaluator
 from ..ops import plane as plane_ops
 from ..parallel.mesh import make_devices
 from ..parallel.replica import ReplicaSolver
-from ..utils import datasets, pfm, prefetch
+from ..utils import datasets, pfm, prefetch, profiling
 
 
 def normalize_argv(argv: Optional[List[str]]) -> List[str]:
@@ -208,6 +208,7 @@ def _make_batch_aux(pair: datasets.StereoPair, opt: Options, layers,
 def _synchronize(solver: LocalExpansionSolver) -> None:
     if solver.device.type == "cuda":
         torch.cuda.synchronize(solver.device)
+        profiling.count_sync()
 
 
 def view_modes(opt: Options):

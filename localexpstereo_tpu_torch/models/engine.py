@@ -36,6 +36,7 @@ from ..config import Parameters
 from ..ops import mincut, mincut_cuda, pairwise, rng, windows
 from ..ops import plane as plane_ops
 from ..utils import checkpoint
+from ..utils.profiling import span
 from . import energy as energy_mod
 from . import grid, postprocess, proposals
 
@@ -172,48 +173,55 @@ def _color_body(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
         toy = (oy_u - s).to(torch.float32)
         rounds, sweeps = mincut_knobs(ss)
 
+    n_u = nby_u * nbx
     for idx, step in enumerate(plan):
-        k = rng.fold_in(key, idx)
-        cell_labels = windows.dense_windows(labeling_m, coy + p + s,
-                                            cox + p + s, nby, nbx, t4, s)
-        if step[0] == "expansion":
-            props = proposals.expansion(k, cell_labels, ox, oy, cw, ch)
-        elif step[0] == "ransac":
-            props = proposals.ransac(k, cell_labels, ox, oy, cw, ch)
-        else:
-            di = step[1]
-            props = proposals.random_perturbation(
-                k, cell_labels, ox, oy, cw, ch, dzs[di], nrs[di],
-                cfg.min_disp, cfg.max_disp, cfg.max_vdisp)
-        if local:
-            props = _slice_rows(props, m_start, nby, nbx, nby_loc)
-        props = props.contiguous()
+        with span("proposal", kind=step[0]):
+            k = rng.fold_in(key, idx)
+            cell_labels = windows.dense_windows(labeling_m, coy + p + s,
+                                                cox + p + s, nby, nbx, t4, s)
+            if step[0] == "expansion":
+                props = proposals.expansion(k, cell_labels, ox, oy, cw, ch)
+            elif step[0] == "ransac":
+                props = proposals.ransac(k, cell_labels, ox, oy, cw, ch)
+            else:
+                di = step[1]
+                props = proposals.random_perturbation(
+                    k, cell_labels, ox, oy, cw, ch, dzs[di], nrs[di],
+                    cfg.min_disp, cfg.max_disp, cfg.max_vdisp)
+            if local:
+                props = _slice_rows(props, m_start, nby, nbx, nby_loc)
+            props = props.contiguous()
 
-        pcost = energy_mod.unary_windows(data, cfg, mode, props, ox_u, oy_u,
-                                         -s, ss, stat_windows,
-                                         clamp_slabs=False, kernel=True,
-                                         vol_row_base=vol_row_base,
-                                         dshard=dshard)
-        ccost = windows.dense_windows(cost_m, coy_u + p, cox + p, nby_u, nbx,
-                                      t4, ss).contiguous()
+        with span("unary"):
+            pcost = energy_mod.unary_windows(
+                data, cfg, mode, props, ox_u, oy_u, -s, ss, stat_windows,
+                clamp_slabs=False, kernel=True, vol_row_base=vol_row_base,
+                dshard=dshard)
+            ccost = windows.dense_windows(cost_m, coy_u + p, cox + p, nby_u,
+                                          nbx, t4, ss).contiguous()
         if do_gc:
-            halo = windows.dense_windows(labeling_m, coy_u + p - 1,
-                                         cox + p - 1, nby_u, nbx, t4,
-                                         ss + 2).contiguous()
-            accept = mincut_cuda.expansion_accept(
-                halo, props, tox, toy, coeff_win, ccost, pcost,
-                lam=cfg.params.lambda_, tau=cfg.params.th_smooth,
-                max_global_rounds=rounds, sweeps_per_round=sweeps,
-                plan_n=nby * nbx)
+            # The module attribute is looked up at the call, inside the
+            # span: a caller may stand in for the kernel's module.
+            with span("accept", kernel="expansion", S=ss, N=n_u):
+                halo = windows.dense_windows(labeling_m, coy_u + p - 1,
+                                             cox + p - 1, nby_u, nbx, t4,
+                                             ss + 2).contiguous()
+                accept = mincut_cuda.expansion_accept(
+                    halo, props, tox, toy, coeff_win, ccost, pcost,
+                    lam=cfg.params.lambda_, tau=cfg.params.th_smooth,
+                    max_global_rounds=rounds, sweeps_per_round=sweeps,
+                    plan_n=nby * nbx) & live
         else:
-            accept = mincut.greedy_accept(ccost, pcost)
-        accept = accept & live
+            with span("accept", kernel="greedy", S=ss, N=n_u):
+                accept = mincut.greedy_accept(ccost, pcost) & live
 
-        lab_tiles = props[:, None, None, :].expand(props.shape[0], ss, ss, 4)
-        _write_canvas(labeling_m, cost_m, coy_u + p, cox + p,
-                      _to_canvas(accept, nby_u, nbx, s),
-                      _to_canvas(pcost, nby_u, nbx, s),
-                      _to_canvas(lab_tiles, nby_u, nbx, s))
+        with span("write"):
+            lab_tiles = props[:, None, None, :].expand(props.shape[0], ss,
+                                                       ss, 4)
+            _write_canvas(labeling_m, cost_m, coy_u + p, cox + p,
+                          _to_canvas(accept, nby_u, nbx, s),
+                          _to_canvas(pcost, nby_u, nbx, s),
+                          _to_canvas(lab_tiles, nby_u, nbx, s))
 
 
 def layer_sweep(data, cfg, labeling_m, cost_m, layer: grid.Layer, li: int,
@@ -225,15 +233,17 @@ def layer_sweep(data, cfg, labeling_m, cost_m, layer: grid.Layer, li: int,
     :func:`_color_body`'s."""
     dev = labeling_m.device
     for ci, (i0, j0) in enumerate(layer.colors):
-        ox, oy, rmask = layer.color_regions(i0, j0)
-        cox, coy = layer.canvas_origin(i0, j0)
-        _color_body(data, cfg, labeling_m, cost_m,
-                    torch.as_tensor(ox, dtype=torch.int64, device=dev),
-                    torch.as_tensor(oy, dtype=torch.int64, device=dev),
-                    torch.as_tensor(rmask, device=dev), cox, coy, dzs, nrs,
-                    rng.fold_in(key, li * 100 + ci),
-                    unit_size=layer.unit_size, nbx=layer.nbx, nby=layer.nby,
-                    plan=plan, do_gc=do_gc, mode=mode, dshard=dshard)
+        with span("color", layer=li, color=ci):
+            ox, oy, rmask = layer.color_regions(i0, j0)
+            cox, coy = layer.canvas_origin(i0, j0)
+            _color_body(data, cfg, labeling_m, cost_m,
+                        torch.as_tensor(ox, dtype=torch.int64, device=dev),
+                        torch.as_tensor(oy, dtype=torch.int64, device=dev),
+                        torch.as_tensor(rmask, device=dev), cox, coy, dzs,
+                        nrs, rng.fold_in(key, li * 100 + ci),
+                        unit_size=layer.unit_size, nbx=layer.nbx,
+                        nby=layer.nby, plan=plan, do_gc=do_gc, mode=mode,
+                        dshard=dshard)
 
 
 def _init_canvas(x: torch.Tensor, hb: int, wb: int, s: int) -> torch.Tensor:
@@ -514,8 +524,9 @@ class LocalExpansionSolver:
         self.layers = grid.build_layers(w, h, self.unit_sizes)
         if self.data is None:
             pad = grid.required_padding(self.unit_sizes, self.params.windR)
-            self.data, self.cfg = self._build_energy(
-                self.im0, self.im1, self.vol0, self.vol1, pad)
+            with span("build"):
+                self.data, self.cfg = self._build_energy(
+                    self.im0, self.im1, self.vol0, self.vol1, pad)
         self.cfg = dataclasses.replace(self.cfg,
                                        unary_backend=self.unary_backend,
                                        interp=self.interp)
@@ -549,7 +560,9 @@ class LocalExpansionSolver:
                 (self.cfg.height, self.cfg.width):
             raise ValueError("update_frame: the frame geometry changed")
         im0, im1 = _image(im0_bgr), _image(im1_bgr)
-        data, cfg = self._build_energy(im0, im1, vol0, vol1, self.cfg.pad)
+        with span("build"):
+            data, cfg = self._build_energy(im0, im1, vol0, vol1,
+                                           self.cfg.pad)
         if (data.vol is not None and self.data.vol is not None
                 and data.vol.shape != self.data.vol.shape):
             raise ValueError("update_frame: the frame geometry changed "
@@ -641,80 +654,85 @@ class LocalExpansionSolver:
         1.5, writes both labelings back into the state and logs both views
         at index ``iterations + 1 + pm_iterations``.
         """
-        modes = tuple(view_modes)
-        if modes not in ((0,), (0, 1)):
-            raise ValueError(f"view_modes {view_modes!r}: (0,) or (0, 1)")
-        if init_mode not in ("exact", "cell"):
-            raise ValueError(f"init_mode {init_mode!r}: 'exact' or 'cell'")
-        self.finalize()
-        root = rng.PRNGKey(self.seed)
-        self._state = {}
-        pm_done = gc_done = 0
-        if resume_from is not None:
-            ck = checkpoint.load_checkpoint(resume_from)
-            if ck.pad != self.cfg.pad:
-                raise ValueError(f"checkpoint pad {ck.pad}: the solver's is "
-                                 f"{self.cfg.pad}")
-            for mode in modes:
-                self._state[mode] = energy_mod.state_from_numpy(
-                    ck.labeling[mode], ck.cost[mode], self.device)
-            pm_done, gc_done = ck.pm_iterations_done, ck.iterations_done
-        else:
-            for mode in modes:
-                self._state[mode] = self._init_view(root, mode, init_labeling,
-                                                    init_mode)
-                self._evaluate(mode, 0)
-        if self.evaluator is not None:
-            self.evaluator.start()
-        step = len(modes) * (pm_done + gc_done)
-        for do_gc, base, done, sweeps, first in (
-                (False, 2000, pm_done, pm_iterations, 1),
-                (True, 3000, gc_done, iterations, 1 + pm_iterations)):
-            for it in range(done, sweeps):
+        with span("solve"):
+            modes = tuple(view_modes)
+            if modes not in ((0,), (0, 1)):
+                raise ValueError(f"view_modes {view_modes!r}: (0,) or (0, 1)")
+            if init_mode not in ("exact", "cell"):
+                raise ValueError(f"init_mode {init_mode!r}: 'exact' or 'cell'")
+            self.finalize()
+            root = rng.PRNGKey(self.seed)
+            self._state = {}
+            pm_done = gc_done = 0
+            if resume_from is not None:
+                ck = checkpoint.load_checkpoint(resume_from)
+                if ck.pad != self.cfg.pad:
+                    raise ValueError(f"checkpoint pad {ck.pad}: the "
+                                     f"solver's is {self.cfg.pad}")
                 for mode in modes:
-                    self._sweep(self._state[mode], mode, it, do_gc,
-                                rng.fold_in(root, base + step))
-                    step += 1
-                    self._evaluate(mode, it + first)
-                self._save_consistency(it + first)
-                # it + first sweeps completed, greedy and graph-cut.
-                if (checkpoint_path and checkpoint_every
-                        and (it + first) % checkpoint_every == 0):
-                    self._checkpoint(checkpoint_path,
-                                     *((pm_iterations, it + 1) if do_gc
-                                       else (it + 1, 0)))
-        last = iterations + 1 + pm_iterations
-        if fuse_with:
-            coarsest_first = tuple(reversed(range(len(self.layers))))
-            for ext in fuse_with:
+                    self._state[mode] = energy_mod.state_from_numpy(
+                        ck.labeling[mode], ck.cost[mode], self.device)
+                pm_done, gc_done = ck.pm_iterations_done, ck.iterations_done
+            else:
                 for mode in modes:
-                    lab = (ext.get(mode) if isinstance(ext, dict)
-                           else ext if mode == 0 else None)
-                    if lab is None:
-                        continue
-                    self._fuse_layers(*init_from_labeling(
-                        self.data, self.cfg, lab, mode), mode,
-                        coarsest_first)
-            if len(modes) == 1:
-                self._evaluate(0, last)
-        final = raw = self._unpadded_labeling(0)
-        if len(modes) == 2:
-            raw = raw.clone()
-            labs = postprocess.post_process(
-                raw, self._unpadded_labeling(1), self.im0, self.im1,
-                self.params, threshold=1.5)
-            for mode, lab in zip(modes, labs):
-                # As the JAX engine's _set_unpadded_labeling: the labeling
-                # is replaced and the pre-process unary costs are kept, so
-                # the last row's energy is the old data sum plus the
-                # smoothness of the post-processed labeling.
-                self._unpadded_labeling(mode).copy_(lab)
-            final = labs[0]
-            for mode in modes:
-                self._evaluate(mode, last)
-        if self.evaluator is not None:
-            self.evaluator.stop()
-        return final, raw
+                    with span("init"):
+                        self._state[mode] = self._init_view(
+                            root, mode, init_labeling, init_mode)
+                    self._evaluate(mode, 0)
+            if self.evaluator is not None:
+                self.evaluator.start()
+            step = len(modes) * (pm_done + gc_done)
+            for do_gc, base, done, sweeps, first in (
+                    (False, 2000, pm_done, pm_iterations, 1),
+                    (True, 3000, gc_done, iterations, 1 + pm_iterations)):
+                for it in range(done, sweeps):
+                    for mode in modes:
+                        with span("sweep",
+                                  kind="graph_cut" if do_gc else "greedy",
+                                  index=it + first, view=mode):
+                            self._sweep(self._state[mode], mode, it, do_gc,
+                                        rng.fold_in(root, base + step))
+                        step += 1
+                        self._evaluate(mode, it + first)
+                    self._save_consistency(it + first)
+                    # it + first sweeps completed, greedy and graph-cut.
+                    if (checkpoint_path and checkpoint_every
+                            and (it + first) % checkpoint_every == 0):
+                        self._checkpoint(checkpoint_path,
+                                         *((pm_iterations, it + 1) if do_gc
+                                           else (it + 1, 0)))
+            last = iterations + 1 + pm_iterations
+            if fuse_with:
+                coarsest_first = tuple(reversed(range(len(self.layers))))
+                for ext in fuse_with:
+                    for mode in modes:
+                        lab = (ext.get(mode) if isinstance(ext, dict)
+                               else ext if mode == 0 else None)
+                        if lab is None:
+                            continue
+                        self._fuse_layers(*init_from_labeling(
+                            self.data, self.cfg, lab, mode), mode,
+                            coarsest_first)
+                if len(modes) == 1:
+                    self._evaluate(0, last)
+            final = raw = self._unpadded_labeling(0)
+            if len(modes) == 2:
+                raw = raw.clone()
+                labs = postprocess.post_process(
+                    raw, self._unpadded_labeling(1), self.im0, self.im1,
+                    self.params, threshold=1.5)
+                for mode, lab in zip(modes, labs):
+                    # As the JAX engine's _set_unpadded_labeling: the labeling
+                    # is replaced and the pre-process unary costs are kept, so
+                    # the last row's energy is the old data sum plus the
+                    # smoothness of the post-processed labeling.
+                    self._unpadded_labeling(mode).copy_(lab)
+                final = labs[0]
+                for mode in modes:
+                    self._evaluate(mode, last)
+            if self.evaluator is not None:
+                self.evaluator.stop()
+            return final, raw
 
     def fuse(self, labeling, mode: int = 0, layer_index: int = 0):
         """Fuses an external [H, W, 4] labeling into view ``mode`` of a

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops import plane as plane_ops
-from ..utils import png
+from ..utils import png, profiling
 from ..utils.timing import TimeStamper
 from . import postprocess
 
@@ -89,6 +89,7 @@ class Evaluator:
         # queued device work.
         if cost_m.is_cuda:
             torch.cuda.synchronize(cost_m.device)
+            profiling.count_sync()
         self.stop()
 
         from . import engine as engine_mod
@@ -172,6 +173,7 @@ class Evaluator:
         was_ticking = self.timer.is_ticking()
         if state[0][1].is_cuda:
             torch.cuda.synchronize(state[0][1].device)
+            profiling.count_sync()
         self.stop()
         cfg = solver.cfg
         p = cfg.pad

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import rng
+from ..utils.profiling import span
 
 #: Feature tower: out channels of each 3 x 3 convolution.
 DEFAULT_CHANNELS = (32, 32, 64, 64)
@@ -181,18 +182,21 @@ def cost_volume(net: MCCNN, im0, im1, ndisp: int) -> torch.Tensor:
     One disparity at a time: a [ndisp, H, W, C] shifted-feature tensor
     would be 106 GB at 1436 x 992 x 145; this keeps one [H, W, C] product.
     """
-    f0 = features(net, im0)
-    f1 = features(net, im1)
-    h, w = f0.shape[:2]
-    f1_pad = torch.cat([f1[:, :1].expand(h, ndisp, f1.shape[2]), f1], dim=1)
-    cols = torch.arange(w, device=f0.device)
-    vol = torch.empty((ndisp, h, w), dtype=torch.float32, device=f0.device)
-    for d in range(ndisp):
-        cost = 1.0 - torch.sum(f0 * f1_pad[:, ndisp - d:ndisp - d + w],
-                               dim=-1)
-        c = min(d, w - 1)
-        vol[d] = torch.where(cols >= d, cost, cost[:, c:c + 1])
-    return vol
+    with span("mccnn"):
+        f0 = features(net, im0)
+        f1 = features(net, im1)
+        h, w = f0.shape[:2]
+        f1_pad = torch.cat([f1[:, :1].expand(h, ndisp, f1.shape[2]), f1],
+                           dim=1)
+        cols = torch.arange(w, device=f0.device)
+        vol = torch.empty((ndisp, h, w), dtype=torch.float32,
+                          device=f0.device)
+        for d in range(ndisp):
+            cost = 1.0 - torch.sum(f0 * f1_pad[:, ndisp - d:ndisp - d + w],
+                                   dim=-1)
+            c = min(d, w - 1)
+            vol[d] = torch.where(cols >= d, cost, cost[:, c:c + 1])
+        return vol
 
 
 def default_weights_path() -> str:

@@ -21,6 +21,7 @@ from typing import Sequence, Union
 
 import torch
 
+from ..utils.profiling import span
 from . import xla_math
 
 _M = 0xFFFFFFFF
@@ -35,16 +36,17 @@ def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
 def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     """The threefry2x32 hash (20 rounds) of counter pairs (x1, x2) under the
     key (k1, k2); all values uint32 held in int64 tensors."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x0 = (x1 + ks[0]) & _M
-    x1 = (x2 + ks[1]) & _M
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0 = (x0 + x1) & _M
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M
-    return x0, x1
+    with span("rng"):
+        ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+        x0 = (x1 + ks[0]) & _M
+        x1 = (x2 + ks[1]) & _M
+        for i in range(5):
+            for r in _ROT[i % 2]:
+                x0 = (x0 + x1) & _M
+                x1 = _rotl(x1, r) ^ x0
+            x0 = (x0 + ks[(i + 1) % 3]) & _M
+            x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M
+        return x0, x1
 
 
 def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 - mirrors jax.random

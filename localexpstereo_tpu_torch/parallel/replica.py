@@ -45,6 +45,7 @@ from ..config import Parameters
 from ..models import engine as engine_mod
 from ..ops import kernels
 from ..ops import plane as plane_ops
+from ..utils import profiling
 from .mesh import make_devices
 
 #: Seconds between liveness checks of a worker while waiting on it.
@@ -99,6 +100,7 @@ class _GroupMember:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        profiling.count_sync()
 
 
 def _solve_pair(problem: _Problem, schedule: _Schedule, b: int, im0, im1,

@@ -37,6 +37,8 @@ from .models.energy import resolve_device
 from .models.engine import (COARSE_PROPOSERS, LAYER0_PROPOSERS,
                             LocalExpansionSolver)
 from .ops import plane as plane_ops
+from .utils import profiling
+from .utils.profiling import span
 
 
 class StereoStream:
@@ -122,6 +124,7 @@ class StereoStream:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            profiling.count_sync()
 
     def process(self, im0, im1, vol0=None, vol1=None) -> Optional[np.ndarray]:
         """Estimates the left view's disparity of one frame: [H, W] float32,
@@ -129,41 +132,46 @@ class StereoStream:
         call and after :meth:`reset`). :attr:`last_frame_seconds` holds the
         wall time of the call."""
         t0 = time.perf_counter()
-        if self._solver is None:
-            self._solver = LocalExpansionSolver(
-                im0, im1, self.params, self.max_disp, vol0=vol0, vol1=vol1,
-                min_disp=self.min_disp, seed=self.seed, device=self.device,
-                vol_dtype=self.vol_dtype, stats_backend=self.stats_backend)
-            for li, size in enumerate(self.unit_sizes):
-                self._solver.add_layer(size, self._proposers(li))
-            self._solver.finalize()
-        else:
-            self._solver.update_frame(im0, im1, vol0, vol1,
-                                      seed=self.seed + self.frame_index)
+        with span("stream.build"):
+            if self._solver is None:
+                self._solver = LocalExpansionSolver(
+                    im0, im1, self.params, self.max_disp, vol0=vol0,
+                    vol1=vol1, min_disp=self.min_disp, seed=self.seed,
+                    device=self.device, vol_dtype=self.vol_dtype,
+                    stats_backend=self.stats_backend)
+                for li, size in enumerate(self.unit_sizes):
+                    self._solver.add_layer(size, self._proposers(li))
+                self._solver.finalize()
+            else:
+                self._solver.update_frame(im0, im1, vol0, vol1,
+                                          seed=self.seed + self.frame_index)
         solver = self._solver
         if self.profile:
             self._sync()
             t_build = time.perf_counter()
-        if self._prev_labeling is None:
-            iters, pm = self.cold
-            labeling, _ = solver.run(iters, view_modes=(0,),
-                                     pm_iterations=pm)
-        else:
-            iters, pm = self.warm
-            labeling, _ = solver.run(iters, view_modes=(0,), pm_iterations=pm,
-                                     init_labeling=self._prev_labeling,
-                                     init_mode="cell")
+        with span("stream.solve"):
+            if self._prev_labeling is None:
+                iters, pm = self.cold
+                labeling, _ = solver.run(iters, view_modes=(0,),
+                                         pm_iterations=pm)
+            else:
+                iters, pm = self.warm
+                labeling, _ = solver.run(iters, view_modes=(0,),
+                                         pm_iterations=pm,
+                                         init_labeling=self._prev_labeling,
+                                         init_mode="cell")
         self._prev_labeling = labeling
         self.frame_index += 1
         if self.profile:
             self._sync()
             t_solve = time.perf_counter()
-        disp = plane_ops.disparity_map(labeling)
-        if self.pipelined:
-            out = self._take_pending()
-            self._pending = self._start_copy(disp)
-        else:
-            out = disp.cpu().numpy()
+        with span("stream.output"):
+            disp = plane_ops.disparity_map(labeling)
+            if self.pipelined:
+                out = self._take_pending()
+                self._pending = self._start_copy(disp)
+            else:
+                out = disp.cpu().numpy()
         t_end = time.perf_counter()
         self.last_frame_seconds = t_end - t0
         if self.profile:
@@ -197,6 +205,7 @@ class StereoStream:
         self._pending = None
         if done is not None:
             done.synchronize()
+            profiling.count_sync()
         return host.numpy().copy()
 
     def flush(self) -> Optional[np.ndarray]:

@@ -758,3 +758,42 @@ def test_training_run_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=TRAIN_RUN_RTOL)
     np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=0,
                                atol=TRAIN_RUN_ACC)
+
+
+@pytest.mark.cuda
+def test_recorder_counts_each_wait_on_the_card(cuda):
+    """Under a profiler of the card's activity alone (the traced
+    benchmark's), a pageable copy to the card, ``.item()`` and
+    ``torch.cuda.synchronize`` each count one sync in the span that holds
+    them, none is shown, and the first span after the window puts the
+    sync debug mode back. The sync debug mode does not report
+    ``torch.cuda.synchronize``: the program counts it where it calls it,
+    as the stream's profile split does."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from localexpstereo_tpu_torch.serving import StereoStream
+    from localexpstereo_tpu_torch.utils import profiling
+    x = torch.ones(4, device=cuda)
+    host = torch.ones(4)
+    stream = StereoStream(PARAMS_GF, 15.0, [8], profile=True, device=cuda)
+    with warnings.catch_warnings(record=True) as shown:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            with profiling.span("copy"):
+                host.to(cuda)
+            with profiling.span("item"):
+                x.sum().item()
+            with profiling.span("synchronize"):
+                stream._sync()
+            with profiling.span("none"):
+                x + 1
+            assert torch.cuda.get_sync_debug_mode() == 1
+        with profiling.span("off"):
+            host.to(cuda)
+    recs = profiling.records()
+    assert [(r.name, r.syncs) for r in recs] == [
+        ("copy", 1), ("item", 1), ("synchronize", 1), ("none", 0)]
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert not [w for w in shown
+                if profiling.SYNC_MESSAGE in str(w.message)]
