@@ -200,7 +200,12 @@ Phases, each printing JSON lines:
             milliseconds of the kernel, the plain version and one
             ``torch.einsum`` of the same sums, the bound, and the floor of
             the sums' dependent chain (its probe kernel: ms and cycles a
-            step); then ``tools/v2_drift.py``'s shared
+            step); the draws of ``csrc/threefry.cu`` (``rng.uniform`` and
+            ``plane.random_unit_vector`` on the card) at DRAW_SHAPES:
+            bitwise with the host's draw, one launch a call, median
+            milliseconds of the kernel's call against the host draw and
+            its copy to the card, and the bound; then
+            ``tools/v2_drift.py``'s shared
             greedy sweep (48 x 72 V2, one state on both devices): no
             differing step among its proposals, unaries and masks, and the
             same random labels and perturbations from the same inputs.
@@ -213,7 +218,9 @@ worker processes that do not see the card. Then a ``{"kernels": [...]}`` line (l
 ``fuse`` run, with the ``cli``, ``dual``, ``v2``, ``stream``,
 ``cli_mccnn``, ``batch``, ``bf_interp``, ``sharded``, ``oracle``,
 ``mccnn_v3`` and ``train`` runs' beside them; ``refit_sums`` with the
-``slice`` run's too), the
+``slice`` run's too; ``threefry_uniform`` and ``threefry_unit_vector``
+with every solving phase's, each of which must be above 0, and the
+``proposals`` phase's ms against the host draw and its copy), the
 ``nvidia-smi`` name/power-limit line, and last ``{"ok": true, "device":
 {...}}``. Any failed check raises,
 so the script exits non-zero and prints no result; it also refuses to run
@@ -324,6 +331,14 @@ SCALE_CHUNK = 16
 #: (NVIDIA's data sheet).
 XLA_MATH_DRAWS = 1_000_000
 REFIT_SHAPES = ((14, 468), (43, 54), (129, 6))
+#: The proposals' draws on the main path: a layer's cells (468, 54, 6) and
+#: RANSAC's 32 hypotheses of each layer-0 cell.
+DRAW_SHAPES = ((468,), (54,), (6,), (32 * 468,))
+#: The kernels a command-line solve on ``-unaryBackend dma`` launches.
+SOLVE_KERNELS = ("expansion_accept", "sample_windows", "refit_sums",
+                 "threefry_uniform", "threefry_unit_vector")
+#: The kernels that make the proposals' and the init's random draws.
+DRAW_KERNELS = ("threefry_uniform", "threefry_unit_vector")
 F64_OPS_S = 34e12
 #: The oracle phase: regions a window size of each kind of problem.
 ORACLE_REGIONS = {42: 6, 129: 3, 387: 2}
@@ -371,11 +386,12 @@ def phase_env(torch):
 
 def phase_build():
     from localexpstereo_tpu_torch.models import proposals
-    from localexpstereo_tpu_torch.ops import cuda_build, mincut_cuda, unary_cuda
+    from localexpstereo_tpu_torch.ops import (cuda_build, mincut_cuda,
+                                              threefry_cuda, unary_cuda)
     t0 = time.perf_counter()
     built = cuda_build.build([mincut_cuda.LIBRARY, mincut_cuda.MINCUT_LIBRARY,
-                              unary_cuda.LIBRARY, proposals.REFIT_LIBRARY],
-                             verbose=True)
+                              unary_cuda.LIBRARY, proposals.REFIT_LIBRARY,
+                              threefry_cuda.LIBRARY], verbose=True)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {name: {"file": path.name, "ready_s": s,
                                "compiled": compiled}
@@ -423,6 +439,15 @@ def kernel_entry(rows):
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": top["bound_by"], "library_ms": None}
+
+
+def draw_entry(rows):
+    """Sums of a draw kernel's per-shape rows for the ``kernels`` line."""
+    return {"bitwise": all(r["bitwise"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "host_copy_ms": sum(r["host_copy_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes", "library_ms": None}
 
 
 def accept_row(torch, args, kw):
@@ -976,6 +1001,7 @@ def phase_proposals(torch):
             kl, (ox.to(dev) + xx).float(), (oy.to(dev) + yy).float(), 0.0,
             144.0).cpu()
     init_equal = bool(torch.equal(labels["cpu"], labels["cuda"]))
+    draw_rows = draw_times(torch)
     refit_rows = []
     for s, cells in REFIT_SHAPES:
         args = refit_inputs(torch, s, cells)
@@ -1015,10 +1041,11 @@ def phase_proposals(torch):
            "xla_math_equal_share": equal, "init_labels_cells": wb * hb,
            "init_labels_equal": init_equal,
            "refit_bitwise": [r["bitwise"] for r in refit_rows],
+           "draws_bitwise": [r["bitwise"] for r in draw_rows],
            "v2_drift_shared": drift, "nvidia_smi": smi_line()}
     row["ok"] = (min(equal.values()) == 1.0 and init_equal
                  and all(r["bitwise"] and r["launches"] == 1
-                         for r in refit_rows)
+                         for r in refit_rows + draw_rows)
                  and not drift["first_differing"]
                  and drift["labeling_max_gap"] == 0.0
                  and same["init_labeling_max_gap"] == 0.0
@@ -1027,7 +1054,43 @@ def phase_proposals(torch):
     if not row["ok"]:
         raise AssertionError(f"the card's proposals differ from the CPU's: "
                              f"{row}")
-    return refit_rows
+    return refit_rows, draw_rows
+
+
+def draw_times(torch):
+    """The proposals' draws made on the card (``csrc/threefry.cu``) against
+    the host's draw of the same bits plus its copy to the card, as the port
+    drew them before: ``rng.uniform`` in (0, 144) and
+    ``plane.random_unit_vector`` at angle pi, at DRAW_SHAPES. Each call
+    timed between CUDA events (median of 50 kernel, 20 host calls), so the
+    host's work to launch is in it; bound: the draws' bytes written once."""
+    import math
+
+    from localexpstereo_tpu_torch.ops import plane, rng, threefry_cuda
+    key = rng.fold_in(rng.PRNGKey(0), 2003)
+    rows = []
+    for shape in DRAW_SHAPES:
+        for kind, width, fn in (
+                ("uniform", 1, lambda dev: rng.uniform(
+                    key, shape, 0.0, 144.0, device=dev)),
+                ("unit_vector", 3, lambda dev: plane.random_unit_vector(
+                    key, math.pi, shape, device=dev))):
+            wrapper = getattr(threefry_cuda, kind)
+            before = wrapper.launches
+            got = fn("cuda")
+            torch.cuda.synchronize()
+            launched = wrapper.launches - before
+            nbytes = 4 * width * math.prod(shape)
+            row = {"phase": "proposals", "part": "draw", "kind": kind,
+                   "shape": list(shape), "launches": launched,
+                   "bitwise": bool(torch.equal(got.cpu(), fn(None))),
+                   "ms": time_ms(torch, lambda: fn("cuda"), 50),
+                   "host_copy_ms": time_ms(
+                       torch, lambda: fn(None).to("cuda"), 20),
+                   "bound_ms": bound(nbytes, 0.0)[0], "bytes": nbytes}
+            emit(row)
+            rows.append(row)
+    return rows
 
 
 def refit_chain_floor(torch, proposals, p: int):
@@ -1182,7 +1245,8 @@ def run_slice(torch, pm_iterations: int, iterations: int):
                        for li, gc, s in layer_times],
            "energies": energies, "bad05": b05, "bad10": b10,
            "expansion_accept_launches": launches,
-           "refit_sums_launches": fns["refit_sums"].launches}
+           "refit_sums_launches": fns["refit_sums"].launches,
+           "draw_launches": {k: fns[k].launches for k in DRAW_KERNELS}}
     emit(row)
     if launches == 0 or row["refit_sums_launches"] == 0:
         raise AssertionError("the sweeps never launched a kernel: "
@@ -1415,8 +1479,7 @@ def phase_cli(torch):
         fn.launches = 0
     wall_s, log, time_txt, disp = run_cli(
         ["-unaryBackend", "dma", "-device", "cuda"], CLI_DIR / "out")
-    launches = {k: fns[k].launches
-                for k in ("expansion_accept", "sample_windows", "refit_sums")}
+    launches = {k: fns[k].launches for k in SOLVE_KERNELS}
     row = {"phase": "cli", "argv": "-mode MiddV3 -unaryBackend dma "
                                    "-device cuda (2 + 5)",
            "scene_write_s": write_s, "wall_s": wall_s, "time_txt": time_txt,
@@ -1605,8 +1668,7 @@ def phase_dual(torch, cli_row=None):
         wall_s, log, time_txt, disp = run_cli(
             ["-unaryBackend", "dma", "-doDual", "1", "-device", "cuda"], out)
     raw = pfm.read_pfm(str(out / "disp0raw.pfm"))
-    launches = {k: fns[k].launches
-                for k in ("expansion_accept", "sample_windows", "refit_sums")}
+    launches = {k: fns[k].launches for k in SOLVE_KERNELS}
     energies = [r[1] for r in log]
     fail_u8, post_row = post_process_row(post, disp, raw, out, 2 + 5)
     row = {"phase": "dual", "argv": "-mode MiddV3 -unaryBackend dma "
@@ -1941,8 +2003,7 @@ def phase_cli_mccnn(torch):
                  "-device", "cuda"], CLI_DIR / "mccnn_out", scene=scene)
     finally:
         cli.load_v3_volumes = load
-    launches = {k: fns[k].launches
-                for k in ("expansion_accept", "sample_windows", "refit_sums")}
+    launches = {k: fns[k].launches for k in SOLVE_KERNELS}
     row = {"phase": "cli_mccnn",
            "argv": "-mode MiddV3 -volume mccnn -unaryBackend dma -warmup 0 "
                    "-device cuda (2 + 5)",
@@ -2479,6 +2540,9 @@ def phase_sharded(torch):
            "refit_sums_launches": sum(
                r[j]["launches"]["refit_sums"] for r in ranks
                for j in range(3)),
+           "draw_launches": {k: sum(r[j]["launches"][k] for r in ranks
+                                    for j in range(3))
+                             for k in DRAW_KERNELS},
            "nvidia_smi": smi_line()}
     emit(row)
     if min(launches.values()) == 0:
@@ -2790,7 +2854,7 @@ def main(argv) -> int:
         mrows = timed("mincut_kernel", phase_mincut_kernel)
         oracle_row = timed("oracle", phase_oracle)
         urows = timed("unary_kernel", phase_unary_kernel)
-        refit_rows = timed("proposals", phase_proposals)
+        refit_rows, draw_rows = timed("proposals", phase_proposals)
         first = timed("slice_1_1", run_slice, pm_iterations=1, iterations=1)
         cli_row = timed("cli", phase_cli)
         fuse_row = timed("fuse", phase_fuse)
@@ -2825,6 +2889,19 @@ def main(argv) -> int:
     # same at the V2 path's.
     # launches: the fuse run's; launches_<phase>: that phase's run's.
     gf = [r for r in urows if r["r_gf"] > 0 and r["dtype"] == "uint8"]
+    # The draw kernels' launches in every phase that solves on the card.
+    draw_launches = {
+        k: {"launches": fuse_row["launches"][k],
+            **{f"launches_{name}": row["launches"][k]
+               for name, row in (("cli", cli_row), ("dual", dual_row),
+                                 ("v2", v2_row), ("stream", stream_row),
+                                 ("cli_mccnn", mccnn_cli_row),
+                                 ("batch", batch_row), ("mccnn_v3", v3_row),
+                                 ("train", train_row))},
+            "launches_slice": first["draw_launches"][k],
+            "launches_bf_interp": sum(r["launches"][k] for r in bf_rows[:-1]),
+            "launches_sharded": sharded_row["draw_launches"][k]}
+        for k in DRAW_KERNELS}
     emit({"kernels": [
         {"name": "expansion_accept", "route": "cuda",
          "source": "localexpstereo_tpu_torch/csrc/expansion_accept.cu",
@@ -2882,7 +2959,18 @@ def main(argv) -> int:
                                    for r in bf_rows[:-1]),
          "launches_sharded": sharded_row["refit_sums_launches"],
          **kernel_entry(refit_rows),
-         "library_ms": sum(r["library_ms"] for r in refit_rows)}]})
+         "library_ms": sum(r["library_ms"] for r in refit_rows)},
+        *[{"name": k, "route": "cuda",
+           "source": "localexpstereo_tpu_torch/csrc/threefry.cu",
+           "replaces": "none: the JAX side is XLA's threefry",
+           **draw_launches[k], **draw_entry(
+               [r for r in draw_rows if f"threefry_{r['kind']}" == k])}
+          for k in DRAW_KERNELS]]})
+    never = {k: [n for n, v in e.items() if v == 0]
+             for k, e in draw_launches.items()}
+    if any(never.values()):
+        raise AssertionError(f"a solve on the card made no draw there: "
+                             f"{never}")
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -85,8 +85,8 @@ def random_perturbation(key, cell_labels, ox, oy, cw, ch, dz: float,
     # JAX engine's jitted code fuses their multiply-adds, which moves the
     # port's solves off the JAX engine's in a parity test (ROADMAP C8).
     zs = plane_ops.disparity_at(base, gx, gy)
-    dz = torch.tensor(dz, dtype=torch.float32, device=dev)
-    nr = torch.tensor(nr, dtype=torch.float32, device=dev)
+    # float32 values as Python numbers: no copy to the card.
+    dz, nr = xla_math.as_f32(dz), xla_math.as_f32(nr)
 
     minz = torch.clamp(zs - dz, min=min_disp)
     maxz = torch.clamp(zs + dz, max=max_disp)
@@ -99,7 +99,8 @@ def random_perturbation(key, cell_labels, ox, oy, cw, ch, dz: float,
     n1 = n1 / xla_math.norm3(n1)[..., None]
 
     if max_vdisp != 0.0:
-        dv = dz / max(max_disp - min_disp, 1e-9) * max_vdisp
+        dv = float(torch.tensor(dz, dtype=torch.float32)
+                   / max(max_disp - min_disp, 1e-9) * max_vdisp)
         vs = base[:, 3]
         minv = torch.clamp(vs - dv, min=-max_vdisp)
         maxv = torch.clamp(vs + dv, max=max_vdisp)

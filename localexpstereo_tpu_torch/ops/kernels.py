@@ -7,7 +7,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from ..models import proposals
-from . import mincut_cuda, unary_cuda
+from . import mincut_cuda, threefry_cuda, unary_cuda
 
 
 def wrappers() -> Dict[str, Callable]:
@@ -15,7 +15,9 @@ def wrappers() -> Dict[str, Callable]:
     return {"expansion_accept": mincut_cuda.expansion_accept,
             "mincut_accept": mincut_cuda.solve_graph,
             "sample_windows": unary_cuda.sample_windows,
-            "refit_sums": proposals.refit_sums}
+            "refit_sums": proposals.refit_sums,
+            "threefry_uniform": threefry_cuda.uniform,
+            "threefry_unit_vector": threefry_cuda.unit_vector}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from . import rng, xla_math
+from . import rng, threefry_cuda, xla_math
 
 
 def create_plane(normal: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
@@ -76,10 +76,14 @@ def random_unit_vector(key: torch.Tensor, angle_range: float = math.pi,
     theta ~ U(0, 2pi), z ~ U(cos(angle_range), 1), r = sqrt(1 - z^2), with
     1 - z^2 one fused multiply-add, as in the JAX package's jitted code.
 
-    The draws are made on the host, so the vector is computed there too,
-    by :mod:`.xla_math` as XLA computes it, and moved to ``device`` once:
-    the same bits for a solve on the card or the CPU."""
+    Computed by :mod:`.xla_math` as XLA computes it: on the host, and moved
+    to ``device``, or for a CUDA ``device`` on the card in one launch
+    (:func:`.threefry_cuda.unit_vector`). The same bits either way."""
     k1, k2 = rng.split(key)
+    if rng.on_card(device):
+        return threefry_cuda.unit_vector(
+            rng.key_words(k1), rng.key_words(k2), shape,
+            xla_math.as_f32(2.0 * math.pi), _cosf(angle_range), device)
     theta = rng.uniform(k1, shape, 0.0, 2.0 * math.pi)
     z = rng.uniform(k2, shape, _cosf(angle_range), 1.0)
     r = xla_math.sqrt(torch.clamp(xla_math.fma(-z, z, 1.0), min=0.0))

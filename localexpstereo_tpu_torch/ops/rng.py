@@ -8,34 +8,39 @@ trainer's ``randint``, ``bernoulli`` and ``normal`` — for the default
 and training batches equal the reference's bit for bit under the same seed
 (``normal`` to within rounding: its ``erf_inv`` is XLA's polynomial).
 
-A key is an int64 tensor of shape ``[2]`` holding two uint32 words. The
-uint32 arithmetic runs in int64 with ``& 0xFFFFFFFF`` after every add and
-shift (torch has no uint32 arithmetic). Keys stay on the CPU, like the host
-loop that consumes them; a draw moves to ``device`` only at the end.
-There is no global RNG state anywhere in the port.
+A key is an int64 tensor of shape ``[2]`` holding two uint32 words. Keys
+stay on the CPU, like the host loop that consumes them. ``fold_in`` and
+``split`` hash a key's few counters in Python integers, bulk draws whole
+tensors, both by :func:`threefry2x32`: the uint32 arithmetic in int64 with
+``& 0xFFFFFFFF`` after every add and shift (torch has no uint32
+arithmetic). ``uniform`` on a CUDA ``device`` draws
+on the card (:mod:`.threefry_cuda`, the same bits); the trainer's
+``randint``, ``bernoulli`` and ``normal`` draw on the host and move to
+``device`` at the end. There is no global RNG state anywhere in the port.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from ..utils.profiling import span
-from . import xla_math
+from . import threefry_cuda, xla_math
 
 _M = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+def _rotl(x, r: int):
     return ((x << r) | (x >> (32 - r))) & _M
 
 
-def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+def threefry2x32(k1, k2, x1, x2):
     """The threefry2x32 hash (20 rounds) of counter pairs (x1, x2) under the
-    key (k1, k2); all values uint32 held in int64 tensors."""
+    key (k1, k2); all values uint32, held in int64 tensors or Python
+    integers (the same bits, without a tensor operation)."""
     with span("rng"):
         ks = (k1, k2, k1 ^ k2 ^ _PARITY)
         x0 = (x1 + ks[0]) & _M
@@ -55,24 +60,31 @@ def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 - mirrors jax.random
     return torch.tensor([(seed >> 32) & _M, seed & _M], dtype=torch.int64)
 
 
+def key_words(key: torch.Tensor) -> Tuple[int, int]:
+    """A key's two uint32 words as Python integers."""
+    k1, k2 = key.tolist()
+    return k1, k2
+
+
 def _counters(n: int):
     i = torch.arange(n, dtype=torch.int64)
     return i >> 32, i & _M
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """[num, 2] child keys (the partitionable, fold-like split)."""
-    hi, lo = _counters(num)
-    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
-    return torch.stack([b1, b2], dim=-1)
+    """[num, 2] child keys (the partitionable, fold-like split): the hashes
+    of the counters (0, i)."""
+    k1, k2 = key_words(key)
+    num = int(num)
+    return torch.tensor([threefry2x32(k1, k2, i >> 32, i & _M)
+                         for i in range(num)],
+                        dtype=torch.int64).reshape(num, 2)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """Key mixed with the integer ``data`` (hash of the counter (0, data))."""
-    d = int(data) & _M
-    b1, b2 = threefry2x32(key[0], key[1], torch.zeros(1, dtype=torch.int64),
-                          torch.tensor([d], dtype=torch.int64))
-    return torch.cat([b1, b2])
+    return torch.tensor(threefry2x32(*key_words(key), 0, int(data) & _M),
+                        dtype=torch.int64)
 
 
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
@@ -86,11 +98,26 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 Scalar = Union[float, torch.Tensor]
 
 
+def on_card(device) -> bool:
+    """Whether a draw for ``device`` is made on the card."""
+    return device is not None and torch.device(device).type == "cuda"
+
+
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: Scalar = 0.0,
             maxval: Scalar = 1.0, device=None) -> torch.Tensor:
     """float32 uniform draws in [minval, maxval), bit-exact with
     ``jax.random.uniform``: 23 random mantissa bits give a float in [1, 2),
-    minus 1, scaled, then clamped below at ``minval``."""
+    minus 1, scaled, then clamped below at ``minval``. For a CUDA
+    ``device`` the card draws them (:func:`.threefry_cuda.uniform`, the
+    same bits), and ``minval`` and ``maxval`` must be Python numbers;
+    otherwise the host does, here."""
+    if on_card(device):
+        if torch.is_tensor(minval) or torch.is_tensor(maxval):
+            raise TypeError("uniform: a draw on the card takes Python "
+                            "numbers as bounds")
+        return threefry_cuda.uniform(
+            key_words(key), shape, xla_math.as_f32(minval),
+            xla_math.as_f32(maxval), device)
     bits = random_bits(key, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0

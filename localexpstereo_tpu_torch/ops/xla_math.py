@@ -55,7 +55,7 @@ def _top12(v: float) -> int:
 _TINY, _LIMIT = _top12(2.0 ** -12), _top12(120.0)
 
 
-def _as_f32(x):
+def as_f32(x):
     """A tensor as it is; a Python number rounded to float32 (XLA's
     constant), kept a Python float."""
     if torch.is_tensor(x):
@@ -70,7 +70,7 @@ def fma(a, b, c) -> torch.Tensor:
     is a tensor; ``b`` and ``c`` join the float64 operations by type
     promotion, which is exact, unless the float64 operand is zero-dim
     (which would not promote them). Python numbers are float32 constants."""
-    b, c = _as_f32(b), _as_f32(c)
+    b, c = as_f32(b), as_f32(c)
     a = a.to(torch.float64)
     if a.dim() == 0 and torch.is_tensor(b):
         b = b.to(torch.float64)

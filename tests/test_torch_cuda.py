@@ -662,6 +662,56 @@ def test_proposals_on_card_match_cpu(cuda):
             assert torch.equal(got.cpu(), want), (name, s)
 
 
+#: The main path's draw sizes: layer-0 cells (468), the coarser layers'
+#: (54, 6) and RANSAC's 32 hypotheses of each layer-0 cell.
+DRAW_SHAPES = [(468,), (54,), (6,), (32 * 468,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DRAW_SHAPES)
+@pytest.mark.parametrize("bounds", ["unit", "theta", "cos_pi", "cos_pi_3",
+                                    "disparity"])
+def test_uniform_kernel_matches_host(cuda, shape, bounds):
+    """rng.uniform drawn on the card (one launch) equals its host draw bit
+    for bit, for each range the solver draws in."""
+    import math
+
+    from localexpstereo_tpu_torch.ops import plane, rng, threefry_cuda
+    lo, hi = {"unit": (0.0, 1.0), "theta": (0.0, 2.0 * math.pi),
+              "cos_pi": (plane._cosf(math.pi), 1.0),
+              "cos_pi_3": (plane._cosf(math.pi / 3), 1.0),
+              "disparity": (0.0, 144.0)}[bounds]
+    for seed in (0, 2 ** 63 - 1):
+        key = rng.fold_in(rng.PRNGKey(seed), 3107)
+        launches = threefry_cuda.uniform.launches
+        got = rng.uniform(key, shape, lo, hi, device=cuda)
+        assert threefry_cuda.uniform.launches == launches + 1
+        want = rng.uniform(key, shape, lo, hi)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DRAW_SHAPES)
+@pytest.mark.parametrize("angle", ["pi", "pi_3"])
+def test_unit_vector_kernel_matches_host(cuda, shape, angle):
+    """plane.random_unit_vector made on the card (one launch) equals the
+    host's bit for bit, at the perturbation's (pi) and the init's (pi / 3)
+    angle ranges."""
+    import math
+
+    from localexpstereo_tpu_torch.ops import plane, rng, threefry_cuda
+    angle = {"pi": math.pi, "pi_3": math.pi / 3}[angle]
+    for seed in (0, 2 ** 63 - 1):
+        key = rng.fold_in(rng.PRNGKey(seed), 2003)
+        launches = threefry_cuda.unit_vector.launches
+        got = plane.random_unit_vector(key, angle, shape, device=cuda)
+        assert threefry_cuda.unit_vector.launches == launches + 1
+        want = plane.random_unit_vector(key, angle, shape)
+        assert got.shape == shape + (3,)
+        assert torch.equal(got.cpu(), want)
+
+
 def _refit_inputs(r, n, s):
     """Cell-local (x, y, 1) of an s x s cell, 0/1 inlier weights and
     disparities, as RANSAC's refit gets them."""
@@ -797,3 +847,25 @@ def test_recorder_counts_each_wait_on_the_card(cuda):
     assert torch.cuda.get_sync_debug_mode() == 0
     assert not [w for w in shown
                 if profiling.SYNC_MESSAGE in str(w.message)]
+
+    # A small solve: its proposals draw on the card, so no `proposal` or
+    # `rng` span waits on it.
+    from localexpstereo_tpu_torch.ops import threefry_cuda
+    img, vol, h, w, nd, truth = synthetic.build_problem(0.06)
+    solver = engine.LocalExpansionSolver(
+        img, img, PARAMS_GF.replace(windR=6, lambda_=0.5, th_col=0.5),
+        max_disp=float(nd - 1), vol0=vol, vol1=vol, device=cuda)
+    for i, size in enumerate([4, 8, 16]):
+        solver.add_layer(size, engine.LAYER0_PROPOSERS if i == 0
+                         else engine.COARSE_PROPOSERS)
+    solver.finalize()
+    launches = (threefry_cuda.uniform.launches,
+                threefry_cuda.unit_vector.launches)
+    with profile(activities=[ProfilerActivity.CUDA]):
+        solver.run(iterations=1, pm_iterations=1)
+    recs = profiling.records()
+    drawing = [r for r in recs if r.name in ("proposal", "rng")]
+    assert {r.name for r in drawing} == {"proposal", "rng"}
+    assert sum(r.syncs for r in drawing) == 0
+    assert threefry_cuda.uniform.launches > launches[0]
+    assert threefry_cuda.unit_vector.launches > launches[1]

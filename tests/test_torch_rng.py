@@ -32,6 +32,50 @@ def test_split(num):
                                   rng.split(kt, num).numpy())
 
 
+#: Seeds at the ends of their range: JAX without 64-bit types keeps a
+#: seed's low 32 bits, so the JAX key is made from the port's key words.
+INT_KEY_SEEDS = [0, 1, 2 ** 32 - 1, 2 ** 63 - 1]
+
+
+def _key_pair(seed):
+    kt = rng.PRNGKey(seed)
+    return jnp.asarray(kt.numpy().astype(np.uint32)), kt
+
+
+def _tensor_twin(key, hi, lo):
+    """threefry2x32 of the counters (hi, lo) by the tensor hash."""
+    b1, b2 = rng.threefry2x32(key[0], key[1],
+                              torch.as_tensor(hi, dtype=torch.int64),
+                              torch.as_tensor(lo, dtype=torch.int64))
+    return torch.stack([b1, b2], dim=-1)
+
+
+@pytest.mark.parametrize("seed", INT_KEY_SEEDS)
+@pytest.mark.parametrize("data", [0, 2 ** 32 - 1])
+def test_int_fold_in_equals_jax_and_tensor_hash(seed, data):
+    """fold_in's Python-integer hash against jax.random.fold_in and the
+    tensor hash of the counter (0, data)."""
+    kj, kt = _key_pair(seed)
+    got = rng.fold_in(kt, data)
+    assert got.dtype == torch.int64 and got.shape == (2,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _bits(jax.random.fold_in(kj, data)))
+    assert torch.equal(got, _tensor_twin(kt, [0], [data])[0])
+
+
+@pytest.mark.parametrize("seed", INT_KEY_SEEDS)
+@pytest.mark.parametrize("num", [1, 2, 3, 4, 8])
+def test_int_split_equals_jax_and_tensor_hash(seed, num):
+    """split's Python-integer hashes against jax.random.split and the
+    tensor hash of the counters (0, i)."""
+    kj, kt = _key_pair(seed)
+    got = rng.split(kt, num)
+    assert got.dtype == torch.int64 and got.shape == (num, 2)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _bits(jax.random.split(kj, num)))
+    assert torch.equal(got, _tensor_twin(kt, [0] * num, list(range(num))))
+
+
 @pytest.mark.parametrize("shape,lo,hi", [
     ((468,), 0.0, 1.0),                 # _cell_pixel at the fine layer
     ((32 * 54,), 0.0, 1.0),             # RANSAC hypotheses
@@ -58,6 +102,15 @@ def test_uniform_cos_minval():
                       torch.cos(torch.tensor(np.pi / 3, dtype=torch.float32)),
                       1.0).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bounds", [(torch.tensor(0.0), 1.0),
+                                    (0.0, torch.tensor(1.0))])
+def test_card_uniform_refuses_tensor_bounds(bounds):
+    """A draw for the card takes Python bounds: reading a tensor bound
+    there would wait for the card. It refuses before touching a device."""
+    with pytest.raises(TypeError, match="Python numbers"):
+        rng.uniform(rng.PRNGKey(3), (4,), *bounds, device="cuda")
 
 
 #: The MC-CNN trainer's draws: its batch (4096 pixels), a small shape, and
