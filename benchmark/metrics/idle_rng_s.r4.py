@@ -1,0 +1,10 @@
+"""Seconds per frame kept in the replica cell in which a worker's card ran
+no op, inside that worker's frames, while the program's ``rng`` span was
+the innermost open span on the worker's solving thread, summed over the
+workers: the host's threefry hash (every fold_in, split and draw)."""
+
+from benchmark import replica_trace
+
+
+def read(run):
+    return replica_trace.idle_s(run, "rng")

@@ -1,0 +1,10 @@
+"""Seconds per frame kept in the replica cell in which a worker's card ran
+no op, inside that worker's frames, while the program's ``unary`` span was
+the innermost open span on the worker's solving thread, summed over the
+workers: the unary windows (the proposals' and the current costs')."""
+
+from benchmark import replica_trace
+
+
+def read(run):
+    return replica_trace.idle_s(run, "unary")

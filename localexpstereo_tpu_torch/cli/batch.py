@@ -145,6 +145,32 @@ def _evaluator(ns, e, out_dir: str, max_disp: float) -> Evaluator:
     return ev
 
 
+def group_solver(ns, pairs: List[datasets.StereoPair], devices,
+                 volumes) -> ReplicaSolver:
+    """The :class:`ReplicaSolver` of one shape group (``pairs`` of one
+    shape), as :func:`run_batch` runs it: the mode's parameters and layers,
+    pair ``b`` with seed ``-seed`` + b, and the warm-up unless ``-warmup
+    0``. ``volumes``: (vol0, vol1) of each pair in order, or None (V2)."""
+    w = pairs[0].im0.shape[1]
+    params = PARAMS_GF.replace(
+        windR=ns.filterRadious,
+        lambda_=_options_for(ns, "").resolve_smooth_weight())
+    if ns.mode == "MiddV3":
+        params = params.replace(th_col=ns.mc_threshold)
+        layers = cli_main.v3_layers(w)
+    else:
+        layers = cli_main.V2_LAYERS
+    solver = ReplicaSolver(
+        [p.im0 for p in pairs], [p.im1 for p in pairs], params,
+        float(pairs[0].max_disparity), layers, devices=devices,
+        volumes=volumes, seed=ns.seed, vol_dtype=ns.volPrecision)
+    if ns.warmup:
+        solver.precompile(view_modes=(0, 1) if ns.doDual else (0,),
+                          pm_iterations=ns.pmIterations,
+                          iterations=ns.iterations)
+    return solver
+
+
 def run_batch(ns) -> dict:
     dirs = list(ns.targetDirs)
     if ns.targetParent:
@@ -175,33 +201,18 @@ def run_batch(ns) -> dict:
     volumes, prefetcher = _volume_stream(ns, ordered)
 
     for shape, es in groups.items():
-        h, w, _ = shape
-        opt0 = _options_for(ns, es[0]["dir"])
-        params = PARAMS_GF.replace(windR=ns.filterRadious,
-                                   lambda_=opt0.resolve_smooth_weight())
-        if ns.mode == "MiddV3":
-            params = params.replace(th_col=ns.mc_threshold)
-            layers = cli_main.v3_layers(w)
-        else:
-            layers = cli_main.V2_LAYERS
         max_disp = float(es[0]["pair"].max_disparity)
-        solver = ReplicaSolver(
-            [e["pair"].im0 for e in es], [e["pair"].im1 for e in es],
-            params, max_disp, layers, devices=devices, volumes=volumes,
-            seed=ns.seed, vol_dtype=ns.volPrecision)
+        solver = group_solver(ns, [e["pair"] for e in es], devices, volumes)
         evs = [_evaluator(ns, e, os.path.join(ns.outputDir, e["name"]),
                           max_disp) for e in es]
-        if ns.warmup:
-            solver.precompile(view_modes=modes,
-                              pm_iterations=ns.pmIterations,
-                              iterations=ns.iterations)
         solver.set_evaluators(evs)
         waits0 = len(prefetcher.wait_s) if prefetcher else 0
         t0 = time.perf_counter()
         try:
             solver.run(ns.iterations, modes, ns.pmIterations)
             stats = [solver.pair_stats(b) for b in range(len(es))]
-            # The warm-ups run inside run() (the volumes stream in there);
+            # The warm-ups run inside run() (on one card on the first pair,
+            # on several in each worker at its start);
             # the wall leaves out the longest, as the JAX package's leaves
             # out its precompile.
             warmup_s = max(st["warmup_s"] for st in stats)

@@ -19,7 +19,10 @@ clock (``TimeStamper.h``, :mod:`.timing`). Here:
   :func:`count_sync` where the program makes them;
 - :func:`trace`: a ``torch.profiler`` window over the CPU and, where there
   is one, the card, written as a Chrome trace, each span a
-  ``record_function`` range above the ops it launched.
+  ``record_function`` range above the ops it launched;
+- :class:`DeviceWindow`: a window over the card alone that hands back its
+  spans and the card's ops as plain arrays, as a worker process sends them
+  to its parent (``parallel/replica.ReplicaPool(trace=True)``).
 
 The recorder records only while a ``torch.profiler`` window records in
 the process (:func:`trace`, or any other profiler window). Off, a span is
@@ -39,6 +42,7 @@ import time
 import warnings
 from typing import Dict, Iterator, List
 
+import numpy as np
 import torch
 
 #: Spans kept a window; those beyond it are counted as dropped.
@@ -203,6 +207,56 @@ def _stop() -> None:
         with contextlib.suppress(ValueError):
             warnings.filters.remove(entry)
         _on = False
+
+
+def span_rows(records: List[Span]) -> List[tuple]:
+    """``records`` as plain tuples (name, attrs, start, end, parent,
+    thread, syncs), ``end`` None for a span still open: what another
+    process can be sent."""
+    return [(r.name, dict(r.attrs), r.start, getattr(r, "end", None),
+             r.parent, r.thread, r.syncs) for r in records]
+
+
+class DeviceWindow:
+    """A ``torch.profiler`` window over ``device``'s activity alone (over
+    the host's ops on a process without a card: the spans need a window),
+    inside which the spans record. :meth:`stop` returns the window's spans
+    (:func:`span_rows`), ``dropped`` (:func:`counts`) and the device's ops
+    as ``ops``: (names, each op's index into them, starts, ends), on
+    ``time.perf_counter``, the clock of every process of one host
+    (``CLOCK_MONOTONIC``)."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._prof = None
+
+    def start(self) -> None:
+        act = torch.profiler.ProfilerActivity
+        self._prof = torch.profiler.profile(activities=[
+            act.CUDA if self.device.type == "cuda" else act.CPU])
+        self._prof.__enter__()
+
+    def stop(self) -> dict:
+        from torch.autograd import DeviceType
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # The profiler stamps events in ns of the system clock.
+        offset = time.time_ns() * 1e-9 - time.perf_counter()
+        self._prof.__exit__(None, None, None)
+        _stop()
+        ids: Dict[str, int] = {}
+        rows = []
+        for e in self._prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+                continue
+            rows.append((ids.setdefault(e.name(), len(ids)), e.start_ns(),
+                         e.duration_ns()))
+        self._prof = None
+        arr = np.asarray(rows, np.float64).reshape(-1, 3)
+        start = arr[:, 1] * 1e-9 - offset
+        return {"spans": span_rows(_records), "dropped": _dropped,
+                "ops": (list(ids), arr[:, 0].astype(np.int32), start,
+                        start + arr[:, 2] * 1e-9)}
 
 
 @contextlib.contextmanager

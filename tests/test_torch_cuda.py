@@ -492,6 +492,44 @@ def test_replica_workers_on_card_equal_in_process(cuda):
 
 
 @pytest.mark.cuda
+def test_replica_pool_on_every_card_equals_in_process(cuda):
+    """A standing pool with one worker on every visible card, the pairs
+    routed to the free card, returns each pair's in-process solve on
+    cuda:0, bitwise, with its pair index; every worker ran the solver's
+    kernels and no process is left after the close."""
+    from localexpstereo_tpu_torch.parallel.replica import ReplicaSolver
+    rng = np.random.default_rng(1)
+    n = torch.cuda.device_count()
+    b, h, w, nd = n + 2, 48, 64, 12
+    ims = (rng.random((b, h, w, 3)) * 255).astype(np.float32)
+    dd = np.arange(nd, dtype=np.float32)[:, None, None]
+    vols = np.stack([np.minimum(np.abs(dd - rng.random((h, w), np.float32)
+                                       * (nd - 1)) * 0.4, 1.0)
+                     for _ in range(b)]).astype(np.float32)
+    params = PARAMS_GF.replace(windR=6, lambda_=0.5, th_col=0.5)
+    here = ReplicaSolver(ims, ims, params, nd - 1.0, [4, 8],
+                         devices=["cuda:0"], vols0=vols, vols1=vols, seed=9)
+    want = here.run(1, (0,), 1)[0]
+    rs = ReplicaSolver(ims, ims, params, nd - 1.0, [4, 8],
+                       devices=[f"cuda:{i}" for i in range(n)], vols0=vols,
+                       vols1=vols, seed=9)
+    rs.precompile((0,), 1, 1)
+    with rs.pool(1, (0,), 1) as pool:
+        pool.start((ims[0], (vols[0], vols[0])))
+        for k in range(b):
+            pool.submit(k, ims[k], ims[k], (vols[k], vols[k]))
+        got = [pool.next_result(timeout=300) for _ in range(b)]
+        procs = list(pool._procs)
+    assert sorted(g["b"] for g in got) == list(range(b))
+    for g in got:
+        assert np.array_equal(g["result"]["labelings"][0], want[g["b"]])
+        assert g["result"]["launches"]["expansion_accept"] > 0
+    assert {g["worker"] for g in got} == set(range(n))
+    assert all(info["peak_bytes"] > 0 for info in pool.workers)
+    assert not any(p.is_alive() for p in procs)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,s,rows", [(54, 129, (18, 36)), (6, 387, (2, 5))])
 def test_expansion_kernel_plan_n_on_a_row_slice(cuda, n, s, rows):
     """A height shard's call: a slice of the regions with ``plan_n`` the

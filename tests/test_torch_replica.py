@@ -10,8 +10,21 @@ and, in the workers, come back with their clocks; and the port's batch
 against the JAX package's ReplicaSolver on a one-device mesh, each pair's
 final energy within 0.002·|E| + 1e-3 (the JAX side's min-cut knobs set
 to the port's (16, 16)). 28 x 36 pixels, 6 disparities, one layer.
+
+The standing pool (``ReplicaPool``, which ``run`` uses with more than one
+device): pairs routed to the free worker come back one by one as their
+solves end, each with its ``b``, equal to its single solve; a traced pool
+hands back both sides' ``replica.*`` spans and counts the bytes handed each
+way; a worker's error is raised with its traceback; ``close`` drops a pair
+in flight at its next sweep boundary and leaves no process. The pool's
+queues read each message into one buffer: a large array comes through
+whole, and so does a message behind the long (8-byte) size header.
 """
 import dataclasses
+import multiprocessing
+import os
+import struct
+import time
 
 import jax
 import numpy as np
@@ -178,3 +191,140 @@ def test_matches_jax_replica(three):
     (got, _, _), _ = rs.energies()
     for g, w in zip(got, np.asarray(want)):
         assert abs(g - w) <= 0.002 * abs(w) + 1e-3, (got, want)
+
+
+# ------------------------------------------------------------ the pool --
+
+
+@pytest.fixture(scope="module")
+def pooled():
+    """Three pairs through a standing pool of two CPU workers, each pair to
+    the worker with the fewest in flight: (results in the order they came,
+    the workers' hand-back, the counters, the pairs)."""
+    ims, vols = _problems(3, seed=5)
+    rs = _replica(ims, vols, ["cpu", "cpu"])
+    rs.precompile((0,), 1, 1)
+    with rs.pool(1, (0,), 1) as pool:
+        pool.start((ims[0], (vols[0], vols[0])))
+        for b in range(3):
+            pool.submit(b, ims[b], ims[b], (vols[b], vols[b]))
+        got = [pool.next_result(timeout=120) for _ in range(3)]
+    return got, pool.workers, pool.counts(), (ims, vols)
+
+
+@pytest.mark.parametrize("b", range(3))
+def test_pool_results_equal_single_solves(pooled, b):
+    """Pair b comes back once, with its b, equal to its single solve."""
+    got, _, _, (ims, vols) = pooled
+    mine = [g for g in got if g["b"] == b]
+    assert len(mine) == 1
+    _, want, _ = _single(ims, vols, b)
+    assert np.array_equal(mine[0]["result"]["labelings"][0], want)
+    st = mine[0]["stamps"]
+    assert st["submit"][0] <= st["receive"][1] <= st["build"][0] \
+        <= st["solve"][1] <= st["ret"] <= st["collect"][1]
+    assert [i for i, _ in st["marks"]] == [0, 1, 2]
+
+
+def test_pool_returns_each_pair_as_it_completes(pooled):
+    """The results come in the order the solves ended, the first pair each
+    worker solved carrying its warm-up; the counters count the pairs and
+    the arrays handed each way (each object once, as pickling sends
+    it)."""
+    got, workers, counts, (ims, vols) = pooled
+    ends = [g["stamps"]["collect"][1] for g in got]
+    assert ends == sorted(ends)
+    assert {g["worker"] for g in got} == {0, 1}
+    first = {}
+    for g in sorted(got, key=lambda g: g["stamps"]["solve"][0]):
+        first.setdefault(g["worker"], g["b"])
+    for g in got:
+        warm = g["result"]["warmup_s"]
+        assert (warm > 0.0) is (first[g["worker"]] == g["b"])
+    assert [w["worker"] for w in workers] == [0, 1]
+    assert counts["submitted"] == counts["completed"] == 3
+    # Each view of ims and vols is its own object, pickled on its own.
+    assert counts["bytes_in"] == 3 * 2 * (ims[0].nbytes + vols[0].nbytes)
+    assert counts["bytes_out"] >= 3 * ims[0][..., 0].nbytes * 5
+    assert counts["max_in_flight"] == 3
+
+
+def test_traced_pool_hands_back_both_sides_spans():
+    """With ``trace``, the worker's window holds its ``replica.receive``
+    and ``replica.return`` spans and the solver's, each pair's with its
+    b, and this process's profiled window its ``replica.submit`` and
+    ``replica.collect``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from localexpstereo_tpu_torch.utils import profiling
+    ims, vols = _problems(2, seed=8)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with _replica(ims, vols, ["cpu"]).pool(0, (0,), 1,
+                                               trace=True) as pool:
+            pool.start()
+            for b in range(2):
+                pool.submit(b, ims[b], ims[b], (vols[b], vols[b]))
+            got = [pool.next_result(timeout=120) for _ in range(2)]
+            # A CPU window records every op: its stop takes a while.
+            workers = pool.close(timeout=300.0)
+        main = profiling.span_rows(profiling.records())
+    assert sorted(g["b"] for g in got) == [0, 1]
+    for name in ("replica.submit", "replica.collect"):
+        assert sorted(r[1]["b"] for r in main if r[0] == name) == [0, 1]
+    rows = workers[0]["spans"]
+    for name in ("replica.receive", "replica.return"):
+        assert sorted(r[1]["b"] for r in rows if r[0] == name) == [0, 1]
+    assert [r[0] for r in rows if r[0] in ("build", "solve")] == \
+        ["build", "solve"] * 2
+    assert len(workers[0]["ops"][1]) == 0 and workers[0]["peak_bytes"] == 0
+
+
+def test_pool_raises_a_workers_error_with_its_traceback():
+    ims, vols = _problems(1, seed=6)
+    with _replica(ims, vols, ["cpu"]).pool(1, (0,), 1) as pool:
+        pool.start()
+        pool.submit(0, ims[0], ims[0], ("no volume", "no volume"))
+        with pytest.raises(RuntimeError, match="(?s)worker on cpu.*Traceback"):
+            pool.next_result(timeout=120)
+        procs = list(pool._procs)
+    assert not any(p.is_alive() for p in procs)
+
+
+def test_pool_close_drops_the_pair_in_flight():
+    """close() while a long solve runs: the pair is dropped at its next
+    sweep boundary, the worker exits on its own, and nothing is left."""
+    ims, vols = _problems(1, seed=7)
+    pool = _replica(ims, vols, ["cpu"]).pool(200, (0,), 1)
+    pool.start()
+    pool.submit(0, ims[0], ims[0], (vols[0], vols[0]))
+    procs = list(pool._procs)
+    while not pool._tasks[0].empty():
+        time.sleep(0.01)
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    workers = pool.close()
+    assert time.perf_counter() - t0 < 20.0
+    assert "peak_bytes" in workers[0]         # closed, not terminated
+    assert not any(p.is_alive() for p in procs)
+    assert pool.counts()["completed"] == 0
+    assert pool.close() is workers
+
+
+@pytest.mark.parametrize("how", ["queue", "long_header"])
+def test_pool_queue_reads_a_message_whole(how):
+    from localexpstereo_tpu_torch.parallel import replica
+    arr = np.random.default_rng(3).random(300_000)  # 2.4 MB: many pipe reads
+    if how == "queue":
+        q = replica._Queue(ctx=multiprocessing.get_context("spawn"))
+        q.put((5, arr))
+        b, got = q.get(timeout=30)
+        q.close()
+        assert b == 5 and np.array_equal(got, arr)
+        return
+    reader, writer = multiprocessing.Pipe(duplex=False)
+    payload = arr[:4000].tobytes()  # 32 KB: the pipe holds it unread
+    os.write(writer.fileno(), struct.pack("!i", -1)
+             + struct.pack("!Q", len(payload)) + payload)
+    assert bytes(replica._recv_whole(reader)) == payload
+    reader.close()
+    writer.close()
