@@ -32,7 +32,8 @@ Phases, each printing JSON lines:
             threads, shared memory, blocks, blocks an SM, registers);
 6. small:   a small V3 solve (1 greedy + 1 graph-cut sweep) on the card
             against the same solve on the CPU (plain versions), at windR 6
-            and 20, on the "auto" and the "dma" unary routes, once with
+            and 20, on the "auto" and the "dma" unary routes (both launch
+            ``sample_windows`` on the card), once with
             ``run(fuse_with=...)``, and on both views
             (``run(view_modes=(0, 1))``, both routes): energies within the
             trajectory tolerance; the card's post-process of the CPU
@@ -51,7 +52,8 @@ Phases, each printing JSON lines:
             full 2 + 5 runs in cli, fuse and dual): seconds per sweep
             and per layer,
             energies, bad rates against the planted truth, and the kernel
-            launch counts of each run;
+            launch counts of each run (``expansion_accept``, ``refit_sums``
+            and, on the "auto" route, ``sample_windows``: all > 0);
 8. cli:     the port's command line, ``-mode MiddV3 -unaryBackend dma
             -device cuda``, on the same problem written out as a MiddV3
             directory (PNGs, calib.txt, im0.acrt, disp0GT.pfm) under
@@ -95,8 +97,9 @@ Phases, each printing JSON lines:
             with the build / solve / output split, then 3 warm frames
             pipelined and the flush. Per frame the MC-CNN seconds, the
             frame's seconds, the energy and bad1.0 against the truth; the
-            expansion kernel's launches (exactly those of the schedule) and
-            the peak device memory. Fails if a warm frame's bad1.0 is more
+            expansion kernel's launches (exactly those of the schedule), the
+            unary kernel's (> 0: the stream runs "auto") and the peak
+            device memory. Fails if a warm frame's bad1.0 is more
             than 2 points above the cold frame's or a map is not finite;
 14. cli_mccnn: the command line ``-mode MiddV3 -volume mccnn
             -unaryBackend dma -warmup 0 -device cuda`` at 2 + 5 on the
@@ -115,7 +118,7 @@ Phases, each printing JSON lines:
             walls and each pair's load, prefetch-wait, warm-up and solve
             seconds and expansion launches; pair 0's disparity must equal
             the command line's bitwise, its bad1.0 within 0.5 pt and its
-            launches equal. Then the two full-size pairs through two
+            launches equal, and the batch must launch ``sample_windows``. Then the two full-size pairs through two
             worker processes on cuda:0 (ReplicaSolver): their disparities
             must equal the serial run's; both walls are printed;
 16. bf_interp: three solves at 360 x 248 x 37 (2 + 1, the reference's
@@ -168,7 +171,7 @@ Phases, each printing JSON lines:
             warp-consistent 1436 x 992 x 145 pair, its MC-CNN volume (WTA
             bad rates) and the tool's 2 + 5 solve (bad rates), beside the
             JAX tool's artifact; WTA bad1.0 and the solve's bad1.0 held to
-            MCCNN_V3_LIMITS;
+            MCCNN_V3_LIMITS, both kernels of the solve launched;
 21. train:  ``tools/train_mccnn.py`` on the card at full width (channels
             32, 32, 64, 64, 4096 pixel pairs a step, 600 steps, Adam 3e-4)
             on four synthetic V2 scenes at the MiddV2 size (375 x 450 x
@@ -188,8 +191,9 @@ Phases, each printing JSON lines:
             version on the solve's first call of each shape. Fails unless
             every loss is finite, the held-out hinge fell, the trained WTA
             beats the initial one, the solve's bad1.0 is within
-            TRAIN_SOLVE_BAD1, it launched ``expansion_accept`` and the
-            kernel agreed at every shape;
+            TRAIN_SOLVE_BAD1, it launched ``expansion_accept`` and
+            ``sample_windows`` and the expansion kernel agreed at every
+            shape;
 22. proposals: the proposals on the card against the CPU, bit for bit:
             ``ops/xla_math`` (sin / cos, sqrt, rsqrt, norm3, the fused
             multiply-add and the 3 x 3 dot) on 1,000,000 draws each, the
@@ -229,6 +233,7 @@ named phases (after env and build) and prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import multiprocessing
@@ -736,7 +741,7 @@ def phase_small(torch, twins=None):
             e_cpu, b_cpu, _, _ = twins[("v3", windr)]
             ok = _close(e_gpu, e_cpu)
             ok &= abs(b_gpu[1] - b_cpu[1]) <= 0.5
-            ok &= (n_gpu > 0) == (route == "dma")
+            ok &= n_gpu > 0
             emit({"phase": "small", "route": route, "windR": windr,
                   "layers": SMALL_LAYERS, "energies_cuda": e_gpu,
                   "energies_cpu": e_cpu, "bad_cuda": b_gpu, "bad_cpu": b_cpu,
@@ -876,7 +881,7 @@ def phase_small_dual(torch, twins):
         e_gpu, _, _, n_gpu = small_dual(torch, "cuda", route)
         ok = all(len(e_gpu[m]) == 4 and _close(e_gpu[m], e_cpu[m])
                  for m in (0, 1))
-        ok &= (n_gpu > 0) == (route == "dma")
+        ok &= n_gpu > 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = postprocess.post_process(
@@ -1245,12 +1250,15 @@ def run_slice(torch, pm_iterations: int, iterations: int):
                        for li, gc, s in layer_times],
            "energies": energies, "bad05": b05, "bad10": b10,
            "expansion_accept_launches": launches,
+           "sample_windows_launches": fns["sample_windows"].launches,
            "refit_sums_launches": fns["refit_sums"].launches,
            "draw_launches": {k: fns[k].launches for k in DRAW_KERNELS}}
     emit(row)
-    if launches == 0 or row["refit_sums_launches"] == 0:
+    if 0 in (launches, row["sample_windows_launches"],
+             row["refit_sums_launches"]):
         raise AssertionError("the sweeps never launched a kernel: "
-                             f"{launches}, {row['refit_sums_launches']}")
+                             f"{launches}, {row['sample_windows_launches']}, "
+                             f"{row['refit_sums_launches']}")
     gc = energies[pm_iterations + 1:]
     if gc[0] > energies[pm_iterations] or any(
             b > a for a, b in zip(gc, gc[1:])):
@@ -1948,6 +1956,9 @@ def phase_stream(torch):
         raise AssertionError(f"expansion_accept launched "
                              f"{launches['expansion_accept']} times, the "
                              f"schedule has {expected}")
+    if launches["sample_windows"] == 0:
+        raise AssertionError("the stream's sweeps never launched "
+                             "sample_windows")
     return row
 
 
@@ -2144,6 +2155,8 @@ def phase_batch(torch):
         raise AssertionError(f"expansion_accept launches a pair "
                              f"{pair_launches} against the command line's "
                              f"{cli_launches}")
+    if launches["sample_windows"] == 0:
+        raise AssertionError("the batch never launched sample_windows")
     if not all(row["workers"]["equal_to_serial"]):
         raise AssertionError("the worker processes' disparities differ "
                              "from the serial run's")
@@ -2400,14 +2413,33 @@ def shard_row(o):
             if k not in ("labels", "cost", "final")}
 
 
+@contextlib.contextmanager
+def plain_unary():
+    """While the block runs, every sweep's unary takes the route it takes
+    on the CPU ("auto": the plain sampler and guided filter), on the card
+    too: the sharded ranks' arithmetic, since the fused kernel does not
+    read a part of the volume."""
+    from localexpstereo_tpu_torch.models import energy
+    real = energy.fused_unary
+    energy.fused_unary = lambda cfg, device, size: real(cfg, "cpu", size)
+    try:
+        yield
+    finally:
+        energy.fused_unary = real
+
+
 def phase_sharded(torch):
     """The sharded engines on the card (``localexpstereo_tpu_torch.parallel``,
     one process a rank, gloo: SHARD_RANKS ranks share cuda:0): the
     disparity- and the height-sharded solves of the cli problem (2 + 5,
-    one view, auto) against the single-device solve in this process, the
-    batch over two ranks against each pair's single solve, the spatial
-    aggregation over 4 ranks against filter_image, the at-scale slice
-    over 4 ranks, and expansion_accept on a row slice under plan_n."""
+    one view, auto, so the plain sampler) against the single-device solve
+    in this process on the plain sampler (:func:`plain_unary`), and that
+    one against the single-device solve on the route "auto" takes on the
+    card (the fused unary kernel; energies within the trajectory
+    tolerance), the batch over two ranks against each pair's single
+    solve, the spatial aggregation over 4 ranks against filter_image, the
+    at-scale slice over 4 ranks, and expansion_accept on a row slice under
+    plan_n."""
     from localexpstereo_tpu_torch.models import engine
     from localexpstereo_tpu_torch.ops import mincut_cuda
     from localexpstereo_tpu_torch.parallel import collectives
@@ -2447,9 +2479,13 @@ def phase_sharded(torch):
     group_s = time.perf_counter() - t0
     img, vol, h, w, nd, truth = synthetic.build_problem(1.0)
     sizes = [int(w * f) for f in (0.01, 0.03, 0.09)]
-    ref = multichip.solve_single(img, vol, float(nd - 1), sizes, 0, "cuda",
-                                 schedule=SHARD_SCHEDULE,
-                                 params=sharded_params())
+    with plain_unary():
+        ref = multichip.solve_single(img, vol, float(nd - 1), sizes, 0,
+                                     "cuda", schedule=SHARD_SCHEDULE,
+                                     params=sharded_params())
+    fused = multichip.solve_single(img, vol, float(nd - 1), sizes, 0, "cuda",
+                                   schedule=SHARD_SCHEDULE,
+                                   params=sharded_params())
     whole = ref["vol_bytes"]
     del img, vol
     rows = {}
@@ -2489,6 +2525,20 @@ def phase_sharded(torch):
     rows["volume"]["padded_rows"] = ref["vol_shape"][2]
     rows["single"] = {k: ref[k] for k in ("solve_s", "build_s", "peak_gib",
                                           "launches", "energies")}
+    rows["single_fused"] = {
+        **{k: fused[k] for k in ("solve_s", "launches", "energies")},
+        "labels_equal_plain": bool(np.array_equal(fused["labels"],
+                                                  ref["labels"])),
+        "cost_equal_plain": bool(np.array_equal(fused["cost"],
+                                                ref["cost"])),
+        "max_label_diff": float(np.abs(fused["labels"]
+                                       - ref["labels"]).max())}
+    if not (_close(fused["energies"], ref["energies"])
+            and fused["launches"]["sample_windows"] > 0
+            and ref["launches"]["sample_windows"] == 0):
+        raise AssertionError(f"the single-device solve on the fused unary "
+                             f"kernel is off the plain one's: "
+                             f"{rows['single_fused']}")
     # The batch: each pair against LocalExpansionSolver(seed=b).
     pairs = BatchPairs(SHARD_BATCH[0], SHARD_BATCH[1])
     final = ranks[0][2]["final"]
@@ -2613,7 +2663,8 @@ def phase_mccnn_v3(torch):
            "nvidia_smi": smi_line()}
     row["ok"] = (out["finite"] and out["wta_bad1"] <= MCCNN_V3_LIMITS[0]
                  and out["solve_bad1"] <= MCCNN_V3_LIMITS[1]
-                 and launches["expansion_accept"] > 0)
+                 and launches["expansion_accept"] > 0
+                 and launches["sample_windows"] > 0)
     emit(row)
     if not row["ok"]:
         raise AssertionError(f"the MC-CNN V3 check failed: {row}")
@@ -2802,6 +2853,7 @@ def phase_train(torch):
                  and row["solve_finite"]
                  and row["solve_bad1_nonocc"] <= TRAIN_SOLVE_BAD1
                  and launches["expansion_accept"] > 0
+                 and launches["sample_windows"] > 0
                  and bool(accept_rows)
                  and all(r["ok"] for r in accept_rows))
     emit(row)
@@ -2930,9 +2982,13 @@ def main(argv) -> int:
          "launches_cli": cli_row["launches"]["sample_windows"],
          "launches_dual": dual_row["launches"]["sample_windows"],
          "launches_cli_mccnn": mccnn_cli_row["launches"]["sample_windows"],
+         "launches_v2": v2_row["launches"]["sample_windows"],
+         "launches_stream": stream_row["launches"]["sample_windows"],
+         "launches_slice": first["sample_windows_launches"],
          "launches_batch": batch_row["launches"]["sample_windows"],
          "launches_bf_interp": bf_rows[0]["launches"]["sample_windows"],
          "launches_sharded": sharded_row["sample_windows_launches"],
+         "launches_mccnn_v3": v3_row["launches"]["sample_windows"],
          "launches_train": train_row["launches"]["sample_windows"],
          **kernel_entry(gf),
          "max_abs_err": max(r["max_abs_err"] for r in urows)},

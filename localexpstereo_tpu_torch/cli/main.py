@@ -8,9 +8,11 @@
 
 Flags are the JAX CLI's (``main.cpp:33-50`` plus its own), in both ``-name
 value`` and ``--name value`` form, with ``-device cuda|cpu`` in place of
-``-platform``. ``-unaryBackend auto|xla|blk`` all run the plain sampler
-(on the TPU they were layouts of one function); ``dma`` runs the fused
-sampling + guided-filter kernel (its plain version with ``-device cpu``).
+``-platform``. ``-unaryBackend auto|xla|blk`` are one route (on the TPU
+they were layouts of one function): the sweeps' unary runs the fused
+sampling + guided-filter kernel on the card wherever it has a launch plan
+for the window, and the plain sampler with ``-device cpu``; ``dma`` runs
+the kernel always (its plain version with ``-device cpu``).
 
 MiddV2 mode: images ``imL/imR.png`` (else ``im0/im1.png``), ``info.txt``
 (ground-truth scale and ndisp), ground truth ``groundtruth.png`` and

@@ -85,9 +85,10 @@ class Options:
     #: Cost-volume storage on the device: "uint8" (default; 256 levels over
     #: [0, 2*mc_threshold]), "bfloat16" or "float32" (-volPrecision).
     vol_precision: str = "uint8"
-    #: Unary route of the sweeps (-unaryBackend): "auto" (the plain
-    #: sampler + guided filter) or "dma" (the fused sampling + filter
-    #: kernel; its plain version on the CPU).
+    #: Unary route of the sweeps (-unaryBackend): "auto" (the fused
+    #: sampling + filter kernel on the card where it has a launch plan,
+    #: else the plain sampler + guided filter) or "dma" (the kernel
+    #: always; its plain version on the CPU).
     unary_backend: str = "auto"
     #: 1 runs a throwaway solve (at most one sweep of each kind) before the
     #: evaluator's timer starts: it builds the kernel libraries and pays the

@@ -7,14 +7,16 @@ energy (``CostVolumeEnergy``, kind "volume") and the V2 image-warp energy
   pairwise weights, and the cost volumes or the feature images), padded
   where windows are cut from them, all on one device;
 - :class:`EnergyConfig`: the static configuration, including the unary
-  route of the volume kind: ``"auto"`` (the plain 2-tap sampler, then the
-  filter on statistic windows the caller cuts) or ``"dma"`` (the fused
-  sampling + guided filter of :mod:`..ops.unary_cuda`, which reads the
-  statistics itself; under the bilateral filter it samples only), and
-  the volume's d-interpolation (``interp``: methods 0 and 2 take the
-  plain method sampler on either route). The naive kind has one route,
-  whatever the setting: the warp sampler of :mod:`..ops.unary_warp`,
-  then the filter.
+  route of the volume kind (:func:`fused_unary`): the fused sampling +
+  guided filter of :mod:`..ops.unary_cuda`, which reads the statistics
+  itself (under the bilateral filter it samples only), or the plain
+  2-tap sampler, then the filter on statistic windows the caller cuts.
+  ``"auto"`` takes the fused kernel where the volume lives on a CUDA
+  device and the kernel has a launch plan for the window, ``"dma"``
+  always (its plain version on the CPU). The volume's d-interpolation
+  (``interp``: methods 0 and 2) takes the plain method sampler on either
+  route. The naive kind has one route, whatever the setting: the warp
+  sampler of :mod:`..ops.unary_warp`, then the filter.
 
 The filter is the parameters' ``filter_name``: the guided filter ("GF",
 "GFfloat"; :mod:`..ops.guided`) at radius ``windR // 2`` or the joint
@@ -102,21 +104,32 @@ def _guided(cfg: EnergyConfig) -> bool:
     return cfg.params.filter_name in ("GF", "GFfloat")
 
 
-def fused_unary(cfg: EnergyConfig) -> bool:
-    """Whether the sweeps' unary runs the fused sampling kernel: the "dma"
-    route of the volume kind with linear interpolation (the kernel's only
-    method), on a whole volume (a shard's part is sampled by the plain
-    sampler, as the JAX engine's ``use_vol_dma`` excludes its sharded
-    modes). The one routing point of the unary."""
-    return (cfg.kind == "volume" and cfg.unary_backend == "dma"
-            and cfg.interp == 1 and not cfg.sharded)
+def fused_unary(cfg: EnergyConfig, device, size: int) -> bool:
+    """Whether a sweep's unary over filter windows of side ``size`` (F:
+    the target and the filter radius on each side) runs the fused sampling
+    kernel, :func:`..ops.unary_cuda.sample_windows`. The one routing point
+    of the unary. Only the volume kind with linear interpolation (the
+    kernel's only method) on a whole volume takes it: a shard's part is
+    sampled by the plain sampler, as the JAX engine's ``use_vol_dma``
+    excludes its sharded modes. Then the "dma" route always does (on the
+    CPU the kernel's plain version), and the "auto" route where the volume
+    lives on a CUDA ``device`` and the kernel has a launch plan for (F,
+    the kernel's filter radius); elsewhere "auto" keeps the plain sampler,
+    the JAX engine's on the CPU."""
+    if cfg.kind != "volume" or cfg.interp != 1 or cfg.sharded:
+        return False
+    if cfg.unary_backend == "dma":
+        return True
+    r = cfg.params.guided_radius if _guided(cfg) else 0
+    return (torch.device(device).type == "cuda"
+            and unary_cuda.has_plan(int(size), r))
 
 
-def kernel_filters(cfg: EnergyConfig) -> bool:
+def kernel_filters(cfg: EnergyConfig, device, size: int) -> bool:
     """Whether the fused kernel also runs the filter, reading the
     statistics itself (the sweeps then cut no statistic windows): the
     guided filter on the :func:`fused_unary` route."""
-    return fused_unary(cfg) and _guided(cfg)
+    return _guided(cfg) and fused_unary(cfg, device, size)
 
 
 def build_energy(im0_bgr, im1_bgr, params: Parameters, max_disp: float,
@@ -413,8 +426,9 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
         border.
       kernel: a sweep's color step, which samples by the fused kernel,
         :func:`..ops.unary_cuda.sample_windows`, where :func:`fused_unary`
-        says so (the JAX engine's ``vol_dma``); else the plain sampler of
-        the energy's kind and ``interp``, as the JAX init always does.
+        says so for the energy's device and the filter window (the JAX
+        engine's ``vol_dma``); else the plain sampler of the energy's kind
+        and ``interp``, as the JAX init always does.
       vol_row_base: the volume's array row of image row 0 (a height
         shard's; default ``cfg.vol_pad``).
       dshard: ``(d_base, d_owned, d_total)`` of a disparity shard: each
@@ -428,8 +442,8 @@ def unary_windows(data: EnergyData, cfg: EnergyConfig, mode: int,
     fsize = target_size + 2 * r
     foff = target_off - r
     fox, foy = ox + foff, oy + foff
-    fused = kernel and fused_unary(cfg)
-    in_kernel = kernel and kernel_filters(cfg)
+    fused = kernel and fused_unary(cfg, data.coeff8.device, fsize)
+    in_kernel = fused and _guided(cfg)
     if stat_windows is None and cfg.params.filter_name and not in_kernel:
         raise ValueError(
             f"no fused unary route filters this call (the {cfg.kind} "

@@ -161,10 +161,13 @@ def _color_body(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
     # StereoEnergy.h:616-626): statistic windows and pairwise weights. No
     # statistic windows where the fused kernel filters: it reads the
     # statistics itself.
-    stat_windows = (None if energy_mod.kernel_filters(cfg) else
-                    energy_mod.dense_filter_windows(
-                        data, cfg, mode, ox_u, oy_u, cox + s, coy_u + s,
-                        nby_u, nbx, t4, -s, ss))
+    fsize = ss + 2 * cfg.params.guided_radius
+    route = ("kernel" if energy_mod.fused_unary(cfg, data.coeff8.device,
+                                                fsize) else "plain")
+    stat_windows = (None if energy_mod.kernel_filters(
+        cfg, data.coeff8.device, fsize) else energy_mod.dense_filter_windows(
+            data, cfg, mode, ox_u, oy_u, cox + s, coy_u + s, nby_u, nbx, t4,
+            -s, ss))
     if do_gc:
         coeff_win = windows.dense_windows_leading(
             data.coeff8[mode], coy_u + p, cox + p, nby_u, nbx, t4,
@@ -192,7 +195,7 @@ def _color_body(data: energy_mod.EnergyData, cfg: energy_mod.EnergyConfig,
                 props = _slice_rows(props, m_start, nby, nbx, nby_loc)
             props = props.contiguous()
 
-        with span("unary"):
+        with span("unary", route=route):
             pcost = energy_mod.unary_windows(
                 data, cfg, mode, props, ox_u, oy_u, -s, ss, stat_windows,
                 clamp_slabs=False, kernel=True, vol_row_base=vol_row_base,
@@ -453,10 +456,13 @@ class LocalExpansionSolver:
     without one) or, when asked, the CPU. On a CUDA device the graph-cut
     sweeps run the hand-written expansion kernel and the fusion sweeps the
     min-cut kernel, on the CPU their plain versions.
-    ``unary_backend`` "dma" routes the V3 sweeps' unary through the fused
-    sampling + guided-filter kernel (its plain version on the CPU; under the
-    bilateral filter it samples, and the filter runs after it); "auto"
-    keeps the plain sampler; the V2 energy has the warp sampler on either.
+    The V3 sweeps' unary runs the fused sampling + guided-filter kernel
+    (under the bilateral filter it samples, and the filter runs after it;
+    :func:`energy.fused_unary`): on ``unary_backend`` "auto" on a CUDA
+    device wherever the kernel has a launch plan for the window, else the
+    plain sampler (the JAX engine's, on the CPU); on "dma" always (its
+    plain version on the CPU). The init's unary runs the plain sampler on
+    either; the V2 energy has the warp sampler on either.
     ``interp``: the V3 volume's d-interpolation, 0 nearest, 1 linear (the
     default), 2 quadratic; methods 0 and 2 run the plain method sampler,
     and as the kernel samples linearly only, "dma" with them raises.

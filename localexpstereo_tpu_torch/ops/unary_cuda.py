@@ -206,6 +206,18 @@ def launch_plan(f: int, n: int, r: int,
     return best
 
 
+@functools.lru_cache(maxsize=None)
+def has_plan(f: int, r: int) -> bool:
+    """Whether :func:`launch_plan` has a block for windows of F x F pixels
+    at filter radius r (the number of windows changes no block). Asks
+    nothing of the card."""
+    try:
+        launch_plan(f, 1, r)
+    except ValueError:
+        return False
+    return True
+
+
 # ------------------------------------------------------------- the kernel --
 
 def _declare(lib: ctypes.CDLL) -> None:

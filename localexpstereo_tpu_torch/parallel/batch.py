@@ -51,8 +51,9 @@ def post_process_batch(solver, state, p: int, h: int, w: int):
 class BatchedSolver:
     """Local-expansion stereo over a batch of same-sized pairs, one rank's
     block of it (the JAX class's arguments, the rank's ``device`` in place
-    of the mesh; the unary runs the plain sampler, as the JAX class forces
-    its "xla" route). Every rank passes the whole batch (``ims0``,
+    of the mesh; the unary route is "auto", the fused kernel on the card
+    as in the single-pair solver, where the JAX class forces its "xla"
+    route: the same arithmetic). Every rank passes the whole batch (``ims0``,
     ``ims1``: [B, H, W, 3]; ``vols0``, ``vols1``: [B, D, H, W] or
     sequences; only the rank's pairs are read) and calls the same methods.
 

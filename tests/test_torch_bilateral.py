@@ -122,8 +122,9 @@ def test_bf_solve_matches_jax(jax_solve, route):
     ts.set_evaluator(rec)
     ts.run(iterations=1, pm_iterations=1)
     assert ts.cfg.params.filter_name == "BF"
-    assert ten.fused_unary(ts.cfg) == (route == "dma")
-    assert not ten.kernel_filters(ts.cfg)
+    fsize = 3 * LAYERS[0] + 2 * ts.cfg.params.guided_radius
+    assert ten.fused_unary(ts.cfg, "cpu", fsize) == (route == "dma")
+    assert not ten.kernel_filters(ts.cfg, "cpu", fsize)
     got = rec.energies
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):

@@ -234,7 +234,8 @@ def test_unary_kernel_forced_plans(cuda, case):
 def test_solve_on_card_matches_cpu(cuda, windr, route):
     """A small V3 solve on the card lands on the CPU solve's energies, at a
     narrow filter window and at the main path's (windR 20), on both unary
-    routes; the "dma" route launches the unary kernel on the card."""
+    routes; both launch the unary kernel on the card ("auto" takes it
+    there wherever it has a launch plan)."""
     img, vol, h, w, nd, truth = synthetic.build_problem(0.06)
     energies = {}
     launches = unary_cuda.sample_windows.launches
@@ -264,9 +265,57 @@ def test_solve_on_card_matches_cpu(cuda, windr, route):
         assert lab.device.type == device.type
         energies[device.type] = out
     launched = unary_cuda.sample_windows.launches - launches
-    assert (launched > 0) == (route == "dma")
+    assert launched > 0
     for got, want in zip(energies["cuda"], energies["cpu"]):
         assert abs(got - want) <= 0.002 * abs(want) + 1e-3, energies
+
+
+@pytest.fixture(scope="module")
+def main_path_solver():
+    """The main path's problem (1436 x 992 x 145, uint8 volume, windR 20,
+    layers 14 / 43 / 129, "auto") built on the card, and its truth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    solver, truth, _ = synthetic.bench_solver(1.0, "cuda")
+    solver.finalize()
+    return solver, truth
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("li,n,f", [(0, 468, 62), (1, 54, 149), (2, 6, 407)])
+def test_sweep_unary_kernel_route_equals_plain(main_path_solver, li, n, f):
+    """One color step's proposal costs (``pcost`` of ``engine._color_body``)
+    on the route the sweeps take on the card, the fused kernel reading the
+    statistics itself, equal bit for bit to the plain sampler and guided
+    filter on the statistic windows the color step would cut, at the
+    cells' (N, F) of each layer on the uint8 volume."""
+    from localexpstereo_tpu_torch.models import energy
+    solver, truth = main_path_solver
+    data, cfg = solver.data, solver.cfg
+    layer = solver.layers[li]
+    s = layer.unit_size
+    dev = data.coeff8.device
+    assert cfg.unary_backend == "auto" and data.vol.dtype == torch.uint8
+    props, _, _, fw = synthetic.unary_windows(solver, truth, layer,
+                                              np.random.default_rng(li))
+    assert (props.shape[0], fw) == (n, f)
+    assert energy.kernel_filters(cfg, dev, f)
+    ox, oy, _ = layer.color_regions(0, 0)
+    cox, coy = layer.canvas_origin(0, 0)
+    ox = torch.as_tensor(ox, dtype=torch.int64, device=dev)
+    oy = torch.as_tensor(oy, dtype=torch.int64, device=dev)
+    launches = unary_cuda.sample_windows.launches
+    got = energy.unary_windows(data, cfg, 0, props, ox, oy, -s, 3 * s, None,
+                               clamp_slabs=False, kernel=True)
+    assert unary_cuda.sample_windows.launches == launches + 1
+    stat_windows = energy.dense_filter_windows(
+        data, cfg, 0, ox, oy, cox + s, coy + s, layer.nby, layer.nbx, 4 * s,
+        -s, 3 * s)
+    want = energy.unary_windows(data, cfg, 0, props, ox, oy, -s, 3 * s,
+                                stat_windows, clamp_slabs=False)
+    assert unary_cuda.sample_windows.launches == launches + 1
+    assert got.shape == (n, 3 * s, 3 * s)
+    assert torch.equal(got, want), float((got != want).double().mean())
 
 
 @pytest.mark.cuda

@@ -108,8 +108,10 @@ def test_unary_windows_method_route_matches_jax(interp):
                                    vol0=vol, vol1=vol, vol_pad=vp,
                                    interp=interp)
     tdata, tcfg = ten.energy_from_numpy(jdata, jcfg, device="cpu")
-    assert tcfg.interp == interp and not ten.fused_unary(
-        dataclasses.replace(tcfg, unary_backend="dma"))
+    assert tcfg.interp == interp and not any(
+        ten.fused_unary(dataclasses.replace(tcfg, unary_backend=route), dev,
+                        3 * 4 + 2 * params.guided_radius)
+        for route in ("auto", "dma") for dev in ("cpu", "cuda"))
     s = 4
     layer = tgrid.build_layer(w, h, s)
     ox, oy, _ = layer.color_regions(1, 2)

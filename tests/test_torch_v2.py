@@ -244,8 +244,10 @@ def test_build_energy_naive(energy):
     carried, ccfg = ten.energy_from_numpy(jdata, jcfg, device="cpu")
     assert ccfg == tcfg
     np.testing.assert_array_equal(carried.exi.numpy(), tdata.exi.numpy())
-    assert not ten.fused_unary(dataclasses.replace(tcfg,
-                                                   unary_backend="dma"))
+    assert not any(
+        ten.fused_unary(dataclasses.replace(tcfg, unary_backend=route), dev,
+                        62) for route in ("auto", "dma")
+        for dev in ("cpu", "cuda"))
 
 
 @pytest.mark.parametrize("s,mode,i0,j0", [(4, 0, 0, 0), (4, 1, 2, 3)])
